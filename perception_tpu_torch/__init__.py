@@ -1,0 +1,12 @@
+"""perception_tpu_torch: the PyTorch + CUDA port of perception_tpu.
+
+The JAX package ``perception_tpu`` is the reference; this package keeps
+its module paths and function names and imports neither jax nor
+anything of ``perception_tpu``. Importing it builds nothing: the CUDA
+kernels under ``csrc/`` are compiled at first use on a CUDA tensor
+(``ops/kernels/build.py``).
+
+Ported so far: the cuboid pipeline (``models/cuboid.py``) and what it
+runs, including the fused RANSAC-scoring kernel
+(``ops/kernels/ransac_score.py``, ``csrc/ransac_score.cu``).
+"""
