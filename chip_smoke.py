@@ -1,12 +1,23 @@
 """Smoke run of perception_tpu_torch on one CUDA card.
 
-Builds the fused RANSAC-scoring kernel from ``perception_tpu_torch/csrc``
-and checks it against its plain PyTorch version at the main path's
-shapes; then drives the port's main path, the cuboid pipeline at
-640x480, through ``cuboid_pipeline_from_depth`` (one frame at a time)
-and ``cuboid_pipeline_batch`` (B=8) on the 8 bench frames, and checks
-acceptance, the pose against ground truth, that every RANSAC call went
-through the kernel, and that the card agrees with the port's CPU path.
+Builds the port's three kernels from ``perception_tpu_torch/csrc`` (one
+``nvcc`` per source, all started together) and holds each against its
+plain PyTorch version at the shapes its path gives it: K1, fused RANSAC
+scoring, bit-exact; K2, the fused Gauss-Newton ICP system, with equal
+gate counts and M within rtol/atol 1e-4; K3+K4, the voxel-hash query,
+bit-exact below and above 49152 table rows. Then drives the port's two
+paths through their entry points, each with the kernels' launch counts
+set to 0 just before it and read just after:
+
+- the cuboid pipeline at 640x480 on the 8 bench frames, through
+  ``cuboid_pipeline_from_depth`` (one frame at a time) and
+  ``cuboid_pipeline_batch`` (B=8): acceptance, pose against ground truth,
+  one K1 launch per RANSAC call, and the card against the port's CPU path;
+- SLAM odometry at 640x480 through ``run_odometry`` over 40 frames of the
+  textured-room sweep, under four configurations (keyframe mode with the
+  op graph and with K2; map mode at map_budget 32768 with the shortlist
+  and with the voxel hash): ATE, overlap, exact launch counts, and the
+  card against the port's CPU path over the first 5 frames.
 
 Prints the card, each check and the times; then a JSON line of the
 kernels; and last ``{"ok": true, "device": {...}}``. Exits non-zero,
@@ -22,6 +33,7 @@ import statistics
 import subprocess
 import sys
 import time
+from concurrent.futures import ThreadPoolExecutor
 
 import numpy as np
 import torch
@@ -34,6 +46,24 @@ KERNEL_SHAPES = [  # (B, N, K, all points masked)
     (1, 8192, 1024, True),
 ]
 TAU = 0.015
+KERNELS = ("ransac_score", "icp_gn", "voxelhash_query")
+K2_SHAPES = [  # (R, N, M, all source points masked); the first three are odometry's
+    (1, 4096, 8192, False),    # default OdometryConfig
+    (1, 2048, 4096, False),    # the SLAM bench's keyframe mode
+    (1, 8192, 32768, False),   # benchmarks/odometry_bench.py's large shape
+    (3, 217, 100, False),      # unaligned
+    (1, 4096, 8192, True),
+]
+K2_TOL = dict(rtol=1e-4, atol=1e-4)  # float sums in another order
+K3_CASES = [  # (map points, queries, query order, all map points masked)
+    (32768, 2048, "sorted", False),   # Npad 33792: the odometry hash at map_budget 32768
+    (32768, 4096, "sorted", False),
+    (65536, 4096, "sorted", False),   # Npad 66560: past 49152 rows (K4's regime on the TPU)
+    (32768, 2048, "caller", False),   # incoherent order: tiles overflow
+    (32768, 2048, "sorted", True),
+]
+ODO_FRAMES = 40
+CPU_FRAMES = 5
 
 
 def require(ok, message):
@@ -103,6 +133,132 @@ def time_kernel(device):
     return times
 
 
+def check_k2(device):
+    """K2 against its plain version at every shape; returns max |diff| of M and stats."""
+    from perception_tpu_torch.ops.kernels.icp_gn import gn_system_packed, gn_system_reference
+
+    worst = 0.0
+    for r, n, m, all_masked in K2_SHAPES:
+        args = k2_inputs(r, n, m, all_masked, device)
+        M, st = gn_system_packed(*args, 0.25, 0.02, return_stats=True)
+        torch.cuda.synchronize()
+        Mr, sr = gn_system_reference(*args, 0.25, 0.02)
+        err = max(float((M - Mr).abs().max()), float((st - sr).abs().max()))
+        gates_equal = torch.equal(st[:, 0], sr[:, 0])
+        close = torch.allclose(M, Mr, **K2_TOL) and torch.allclose(st[:, 1], sr[:, 1], **K2_TOL)
+        print(f"K2 icp_gn R={r} N={n} M={m} all_masked={all_masked}: gates equal {gates_equal} "
+              f"({int(sr[:, 0].sum())}), M and gated d2 within rtol/atol 1e-4 {close}, max_abs_err {err:.3e}")
+        require(gates_equal and close, f"K2 != plain version at {(r, n, m, all_masked)}")
+        require(not all_masked or not M.any(), "all-masked K2 system not zero")
+        worst = max(worst, err)
+    return worst
+
+
+def k2_inputs(r, n, m, all_masked, device, seed=0):
+    """Packed operands of a posed random problem, and the poses."""
+    from perception_tpu_torch.geometry import se3
+    from perception_tpu_torch.ops.kernels.icp_gn import pack_source, pack_target
+
+    rng = np.random.RandomState(seed)
+    src = torch.from_numpy((rng.randn(r, n, 3) * 0.3).astype(np.float32))
+    smask = torch.from_numpy(np.zeros((r, n), bool) if all_masked else rng.rand(r, n) > 0.1)
+    tgt = torch.from_numpy((rng.randn(m, 3) * 0.3).astype(np.float32))
+    nrm = torch.nn.functional.normalize(torch.from_numpy(rng.randn(m, 3).astype(np.float32)), dim=1)
+    tmask = torch.from_numpy(rng.rand(m) > 0.1)
+    xi = torch.from_numpy((rng.randn(r, 6) * 0.02).astype(np.float32))
+    src8 = pack_source(src, smask).to(device)
+    tgtd, tn = (t.to(device) for t in pack_target(tgt, nrm, tmask))
+    return src8, tgtd, tn, se3.se3_exp(xi).to(device)
+
+
+def time_k2(device):
+    """K2 and its plain version at odometry's shapes, in ms (plain, kernel, kernel, plain)."""
+    from perception_tpu_torch.ops.kernels.icp_gn import gn_system_packed, gn_system_reference
+
+    times = {}
+    for r, n, m, _ in K2_SHAPES[:3]:
+        args = k2_inputs(r, n, m, False, device, seed=1)
+        runs = [cuda_ms(lambda: gn_system_reference(*args, 0.25, 0.02), 10),
+                cuda_ms(lambda: gn_system_packed(*args, 0.25, 0.02, return_stats=True), 100),
+                cuda_ms(lambda: gn_system_packed(*args, 0.25, 0.02, return_stats=True), 100),
+                cuda_ms(lambda: gn_system_reference(*args, 0.25, 0.02), 10)]
+        times[(n, m)] = (min(runs[1:3]), min(runs[0], runs[3]))
+        print(f"time K2 icp_gn (R={r}, N={n}, M={m}): kernel {runs[1]:.4f} / {runs[2]:.4f} ms, "
+              f"plain {runs[0]:.4f} / {runs[3]:.4f} ms")
+    return times
+
+
+def room_surface(n, seed):
+    """n points on the five planes of the textured room, as a fused map holds them."""
+    rng = np.random.RandomState(seed)
+    u = rng.uniform(-1.0, 1.0, (n, 2))
+    plane = rng.randint(0, 5, n)
+    pts = np.empty((n, 3))
+    for k, (axis, c, (a, b), (sa, sb)) in enumerate([
+        (1, 0.9, (0, 2), (1.3, 1.5)), (1, -0.9, (0, 2), (1.3, 1.5)), (2, 3.0, (0, 1), (1.3, 0.9)),
+        (0, 1.3, (1, 2), (0.9, 1.5)), (0, -1.3, (1, 2), (0.9, 1.5)),
+    ]):
+        sel = plane == k
+        pts[sel, axis] = c
+        pts[sel, a] = u[sel, 0] * sa
+        pts[sel, b] = u[sel, 1] * sb + (1.5 if b == 2 else 0.0)
+    return pts.astype(np.float32)
+
+
+def k3_case(m, nq, order, all_masked, device, seed=0):
+    """A hash of an m-point room map and the kernel's arguments for nq
+    noisy queries in ``order`` ("sorted": cell order; "caller": as drawn)."""
+    from perception_tpu_torch.ops import voxelhash
+
+    rng = np.random.RandomState(seed)
+    ref = room_surface(m, seed)
+    q = ref[rng.randint(0, m, nq)] + (rng.randn(nq, 3) * 0.01).astype(np.float32)
+    mask = np.zeros(m, bool) if all_masked else np.ones(m, bool)
+    vh = voxelhash.build(torch.from_numpy(ref).to(device), torch.from_numpy(mask).to(device), 0.06)
+    q = torch.from_numpy(q).to(device)
+    if order == "sorted":
+        q, _ = voxelhash.sort_by_cell(vh, q)
+    return voxelhash.kernel_args(vh, q)
+
+
+def check_k3(device):
+    """K3+K4 against its plain version: torch.equal on idx and d2; returns max |diff| of d2."""
+    from perception_tpu_torch.ops.kernels.voxelhash_query import voxelhash_query, voxelhash_query_reference
+
+    worst = 0.0
+    for m, nq, order, all_masked in K3_CASES:
+        args, overflow = k3_case(m, nq, order, all_masked, device)
+        idx, d2 = voxelhash_query(*args)
+        torch.cuda.synchronize()
+        ridx, rd2 = voxelhash_query_reference(*args)
+        equal = torch.equal(idx, ridx) and torch.equal(d2, rd2)
+        table, _, _, nchunk, tile = args[:5]
+        print(f"K3+K4 voxelhash_query map={m} (Npad {table.shape[0]}) queries={nq} {order} "
+              f"all_masked={all_masked}: equal {equal}, tile {tile}, chunks max {int(nchunk.max())}, "
+              f"overflow {float(overflow):.3f}, found {float((rd2[:nq] <= 0.06 ** 2).float().mean()):.3f}")
+        require(equal, f"K3+K4 != plain version at {(m, nq, order, all_masked)}")
+        require(order == "sorted" or float(overflow) > 0, "unsorted queries did not overflow any tile")
+        require(not all_masked or float(rd2[:nq].min()) > 1e11, "all-masked table found a neighbour")
+        worst = max(worst, float((d2 - rd2).abs().max()))
+    return worst
+
+
+def time_k3(device):
+    from perception_tpu_torch.ops.kernels.voxelhash_query import voxelhash_query, voxelhash_query_reference
+
+    times = {}
+    for m, nq in ((32768, 2048), (65536, 4096)):
+        args, _ = k3_case(m, nq, "sorted", False, device, seed=1)
+        runs = [cuda_ms(lambda: voxelhash_query_reference(*args), 10),
+                cuda_ms(lambda: voxelhash_query(*args), 100),
+                cuda_ms(lambda: voxelhash_query(*args), 100),
+                cuda_ms(lambda: voxelhash_query_reference(*args), 10)]
+        times[(m, nq)] = (min(runs[1:3]), min(runs[0], runs[3]))
+        print(f"time K3+K4 voxelhash_query (map {m}, {nq} sorted queries): kernel {runs[1]:.4f} / "
+              f"{runs[2]:.4f} ms, plain {runs[0]:.4f} / {runs[3]:.4f} ms")
+    return times
+
+
 def translation_errors(res, gts):
     return np.linalg.norm(res.pose[..., :3, 3].cpu().numpy() - gts[:, :3, 3], axis=-1)
 
@@ -119,7 +275,6 @@ def run_slice(device):
         ransac_input,
         template_features,
     )
-    from perception_tpu_torch.ops.kernels.ransac_score import ransac_score
     from perception_tpu_torch.ops.ransac import _sample_indices
 
     cfg = CuboidConfig()
@@ -140,15 +295,17 @@ def run_slice(device):
     def batch():
         return cuboid_pipeline_batch(depths, camera, generator=gen, config=cfg, **state[device])
 
-    # The main path, counted: 8 single-frame calls, then one call at B=8.
-    ransac_score.launches = 0
+    # The path, counted: 8 single-frame calls, then one call at B=8.
+    reset_launches()
     singles = [one(i) for i in range(FRAMES)]
     batched = batch()
     torch.cuda.synchronize()
-    launches = ransac_score.launches
-    print(f"main path: {FRAMES} x cuboid_pipeline_from_depth + 1 x cuboid_pipeline_batch(B={FRAMES}): "
-          f"K1 launches {launches}")
-    require(launches == FRAMES + 1, f"expected {FRAMES + 1} K1 launches (one per RANSAC call)")
+    counts = read_launches()
+    launches = counts["ransac_score"]
+    print(f"cuboid path: {FRAMES} x cuboid_pipeline_from_depth + 1 x cuboid_pipeline_batch(B={FRAMES}): "
+          f"launches {counts}")
+    require(counts == {"ransac_score": FRAMES + 1, "icp_gn": 0, "voxelhash_query": 0},
+            f"expected {FRAMES + 1} K1 launches (one per RANSAC call) and no other kernel")
 
     stacked = type(batched)(*(torch.stack(t) for t in zip(*singles)))
     for name, res in (("B=1", stacked), (f"B={FRAMES}", batched)):
@@ -184,6 +341,115 @@ def run_slice(device):
     return launches, one, batch
 
 
+def wrappers():
+    """Every kernel's wrapper, by kernel name; each counts its launches."""
+    from perception_tpu_torch.ops.kernels.icp_gn import gn_system_packed
+    from perception_tpu_torch.ops.kernels.ransac_score import ransac_score
+    from perception_tpu_torch.ops.kernels.voxelhash_query import voxelhash_query
+
+    return {"ransac_score": ransac_score, "icp_gn": gn_system_packed, "voxelhash_query": voxelhash_query}
+
+
+def reset_launches():
+    for w in wrappers().values():
+        w.launches = 0
+
+
+def read_launches():
+    return {name: w.launches for name, w in wrappers().items()}
+
+
+def slam_scene():
+    """The SLAM bench's 640x480 camera, and the textured room along the
+    first ODO_FRAMES poses of ``sweep_trajectory(n=300)``: (camera, gt, depths)."""
+    from perception_tpu_torch.bench.slam_scene import render_textured_room, sweep_trajectory
+    from perception_tpu_torch.geometry.camera import PinholeCamera
+
+    w, h = 640, 480
+    fx = 307.0 * w / 320.0
+    camera = PinholeCamera.from_K([fx, 0, w / 2, 0, fx, h / 2, 0, 0, 1], width=w, height=h)
+    gt = sweep_trajectory(n=300)[:ODO_FRAMES]
+    depths = np.stack([render_textured_room(camera, T, seed=i)[1] for i, T in enumerate(gt)])
+    return camera, np.stack(gt), depths
+
+
+def odometry_configs():
+    """The default keyframe mode (op graph, then K2) and the SLAM bench's
+    map-fusion settings (benchmarks/slam_bench.py) at map_budget 32768
+    (shortlist, then the voxel hash)."""
+    from perception_tpu_torch.models.slam.odometry import OdometryConfig
+
+    bench_map = dict(point_budget=2048, keyframe_budget=4096, icp_iterations=8, min_depth=0.1,
+                     max_depth=6.0, normal_max_edge=0.1, kf_translation=0.10, kf_rotation=0.12,
+                     map_budget=32768)
+    return {
+        "keyframe fused_gn=auto": OdometryConfig(fused_gn="auto"),
+        "keyframe fused_gn=on": OdometryConfig(fused_gn="on"),
+        "map 32768 map_nn=auto": OdometryConfig(**bench_map, map_nn="auto"),
+        "map 32768 map_nn=hash": OdometryConfig(**bench_map, map_nn="hash"),
+    }
+
+
+def expected_launches(cfg, steps):
+    """K2 runs once per GN iteration under fused_gn="on" (keyframe mode);
+    the hash query once per iteration and once for the final stats."""
+    return {
+        "ransac_score": 0,
+        "icp_gn": steps * cfg.icp_iterations if cfg.map_budget == 0 and cfg.fused_gn == "on" else 0,
+        "voxelhash_query": steps * (cfg.icp_iterations + 1) if cfg.map_budget > 0 and cfg.map_nn == "hash" else 0,
+    }
+
+
+def run_odometry_paths(device):
+    """Drive run_odometry at 640x480 under the four configurations and
+    check each; returns (kernel launches of the counted runs, frames/s)."""
+    from perception_tpu_torch.models.slam.odometry import run_odometry
+    from perception_tpu_torch.utils.metrics import ate
+
+    t0 = time.perf_counter()
+    camera, gt, depths_np = slam_scene()
+    print(f"odometry scene: {ODO_FRAMES} frames {camera.width}x{camera.height}, fx {camera.fx:.1f}, "
+          f"rendered in {time.perf_counter() - t0:.1f} s")
+    depths = torch.from_numpy(depths_np).to(device)
+    launches, rates = {}, {}
+    for name, cfg in odometry_configs().items():
+        # The path, counted.
+        reset_launches()
+        poses, diags = run_odometry(camera, depths, cfg)
+        torch.cuda.synchronize()
+        counts = read_launches()
+        want = expected_launches(cfg, ODO_FRAMES - 1)
+        for k, v in counts.items():
+            launches[k] = launches.get(k, 0) + v
+        est = torch.stack(poses).cpu()
+        res = ate(est.numpy().astype(np.float64), gt, align=False)
+        overlap = torch.stack([d.overlap for d in diags]).cpu()
+        overflow = float(torch.stack([d.nn_overflow for d in diags]).max())
+        keyframes = 1 + int(torch.stack([d.promoted for d in diags]).sum())
+        print(f"odometry [{name}]: ATE rmse {res.rmse * 100:.3f} cm (max {res.max * 100:.3f}), "
+              f"min overlap {float(overlap.min()):.4f}, max nn_overflow {overflow:.4f}, "
+              f"keyframes {keyframes}, launches {counts}")
+        require(counts == want, f"{name}: kernel launches {counts}, expected {want}")
+        require(est.shape == (ODO_FRAMES, 4, 4) and bool(torch.isfinite(est).all()), f"{name}: bad poses")
+        require(res.rmse <= 0.02, f"{name}: ATE over 2 cm")
+        require(float(overlap.min()) > 0.5, f"{name}: overlap at or under 0.5")
+
+        # The card against the port's CPU path over the first frames.
+        if cfg.fused_gn == "on" or cfg.map_nn == "hash":
+            cpu_poses, _ = run_odometry(camera, torch.from_numpy(depths_np[:CPU_FRAMES]), cfg)
+            cpu = torch.stack(cpu_poses)
+            dt = float((cpu[:, :3, 3] - est[:CPU_FRAMES, :3, 3]).norm(dim=-1).max())
+            dr = float((cpu[:, :3, :3] - est[:CPU_FRAMES, :3, :3]).abs().max())
+            print(f"odometry [{name}] cuda vs cpu, first {CPU_FRAMES} frames: translation diff max "
+                  f"{dt * 1e3:.6f} mm, rotation entry diff max {dr:.3e}")
+            require(dt <= 1e-3, f"{name}: CUDA and CPU poses differ by more than 1 mm")
+
+        fps, runs = frames_per_s(lambda: run_odometry(camera, depths, cfg), ODO_FRAMES)
+        rates[name] = fps
+        print(f"odometry [{name}]: {fps:.2f} frames/s (passes {[round(r, 2) for r in runs]})")
+    return launches, rates
+
+
 def frames_per_s(fn, frames, passes=3):
     fn()
     torch.cuda.synchronize()
@@ -216,29 +482,61 @@ def main() -> int:
           f"cudnn.allow_tf32={torch.backends.cudnn.allow_tf32}")
 
     t0 = time.perf_counter()
-    lib = build.build("ransac_score")
-    build.load_library("ransac_score")
-    print(f"build: {lib.relative_to(build.BUILD_DIR.parents[1])} in {time.perf_counter() - t0:.2f} s")
-    print(lib.with_name(lib.name + ".log").read_text().strip())
+    with ThreadPoolExecutor(len(KERNELS)) as pool:  # one nvcc per source, all at once
+        libs = list(pool.map(build.build, KERNELS))
+    print(f"build: {len(KERNELS)} kernels in {time.perf_counter() - t0:.2f} s")
+    for name, lib in zip(KERNELS, libs):
+        build.load_library(name)
+        print(f"{lib.relative_to(build.BUILD_DIR.parents[1])}:")
+        print(lib.with_name(lib.name + ".log").read_text().strip())
 
-    max_err = check_kernel(device)
-    launches, one, batch = run_slice(device)
-    times = time_kernel(device)
+    k1_err = check_kernel(device)
+    k2_err = check_k2(device)
+    k3_err = check_k3(device)
+
+    cuboid_launches, one, batch = run_slice(device)
+    odo_launches, _ = run_odometry_paths(device)
+
+    k1_times = time_kernel(device)
+    k2_times = time_k2(device)
+    k3_times = time_k3(device)
     fps1, runs1 = frames_per_s(lambda: [one(i) for i in range(FRAMES)], FRAMES)
     fps8, runs8 = frames_per_s(batch, FRAMES)
-    print(f"end to end: B=1 {fps1:.2f} frames/s (passes {[round(r, 2) for r in runs1]}), "
+    print(f"cuboid end to end: B=1 {fps1:.2f} frames/s (passes {[round(r, 2) for r in runs1]}), "
           f"B={FRAMES} {fps8:.2f} frames/s (passes {[round(r, 2) for r in runs8]})")
 
-    print(json.dumps({"kernels": [{
-        "name": "ransac_score",
-        "route": "cuda",
-        "source": "perception_tpu_torch/csrc/ransac_score.cu",
-        "replaces": "perception_tpu/ops/pallas/ransac_score.py:60",
-        "launches": launches,
-        "max_abs_err": max_err,
-        "ms": times[1][0],
-        "plain_ms": times[1][1],
-    }]}))
+    print(json.dumps({"kernels": [
+        {
+            "name": "ransac_score",
+            "route": "cuda",
+            "source": "perception_tpu_torch/csrc/ransac_score.cu",
+            "replaces": "perception_tpu/ops/pallas/ransac_score.py:60",
+            "launches": cuboid_launches,
+            "max_abs_err": k1_err,
+            "ms": k1_times[1][0],
+            "plain_ms": k1_times[1][1],
+        },
+        {
+            "name": "icp_gn",
+            "route": "cuda",
+            "source": "perception_tpu_torch/csrc/icp_gn.cu",
+            "replaces": "perception_tpu/ops/pallas/icp_gn.py:223",
+            "launches": odo_launches["icp_gn"],
+            "max_abs_err": k2_err,
+            "ms": k2_times[(4096, 8192)][0],
+            "plain_ms": k2_times[(4096, 8192)][1],
+        },
+        {
+            "name": "voxelhash_query",
+            "route": "cuda",
+            "source": "perception_tpu_torch/csrc/voxelhash_query.cu",
+            "replaces": "perception_tpu/ops/voxelhash.py:285 (K3), perception_tpu/ops/voxelhash.py:201 (K4)",
+            "launches": odo_launches["voxelhash_query"],
+            "max_abs_err": k3_err,
+            "ms": k3_times[(32768, 2048)][0],
+            "plain_ms": k3_times[(32768, 2048)][1],
+        },
+    ]}))
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu",
         "kind": torch.cuda.get_device_name(0),

@@ -6,7 +6,8 @@ anything of ``perception_tpu``. Importing it builds nothing: the CUDA
 kernels under ``csrc/`` are compiled at first use on a CUDA tensor
 (``ops/kernels/build.py``).
 
-Ported so far: the cuboid pipeline (``models/cuboid.py``) and what it
-runs, including the fused RANSAC-scoring kernel
-(``ops/kernels/ransac_score.py``, ``csrc/ransac_score.cu``).
+Ported so far: the cuboid pipeline (``models/cuboid.py``) and SLAM
+odometry (``models/slam/odometry.py``), with what they run, including
+the three kernels under ``csrc/``: fused RANSAC scoring, the fused
+Gauss-Newton ICP system and the voxel-hash query.
 """

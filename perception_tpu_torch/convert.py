@@ -1,9 +1,11 @@
 """Turn the JAX package's pipeline state into the port's.
 
-The cuboid pipeline has no weights: its state is the camera and the
-preprocessed template (``template_features``' points, normals and mask).
-``state_from_jax`` takes them as numpy arrays (``np.asarray`` of the JAX
-side's values), so both packages compute on the same state.
+The pipelines have no weights. The cuboid pipeline's state is the camera
+and the preprocessed template (``template_features``' points, normals
+and mask): ``state_from_jax`` takes them as numpy arrays (``np.asarray``
+of the JAX side's values). Odometry's state is an ``OdometryState``:
+``odometry_state_from_jax`` takes one whose leaves are numpy arrays. So
+both packages compute on the same state.
 """
 
 from __future__ import annotations
@@ -14,6 +16,8 @@ import numpy as np
 import torch
 
 from perception_tpu_torch.geometry.camera import PinholeCamera
+from perception_tpu_torch.models.slam.odometry import OdometryState
+from perception_tpu_torch.ops.voxelhash import VoxelHash
 
 
 class CuboidState(NamedTuple):
@@ -34,3 +38,18 @@ def state_from_jax(
         template_normals=torch.tensor(np.asarray(template_normals, np.float32), device=device),
         template_mask=torch.tensor(np.asarray(template_mask, bool), device=device),
     )
+
+
+def _leaf(x, device) -> torch.Tensor:
+    return torch.from_numpy(np.array(x)).to(device)  # keeps float32 / int32 / bool
+
+
+def odometry_state_from_jax(state, device="cpu") -> OdometryState:
+    """A JAX ``OdometryState`` whose leaves are numpy arrays (``np.asarray``
+    of each, the ``VoxelHash`` included) -> the port's state on ``device``.
+    The JAX hash's transposed ``tableT`` has no counterpart and is dropped."""
+    fields = {name: _leaf(getattr(state, name), device)
+              for name in OdometryState._fields if name != "map_hash"}
+    vh = state.map_hash
+    fields["map_hash"] = VoxelHash(*(_leaf(getattr(vh, name), device) for name in VoxelHash._fields))
+    return OdometryState(**fields)

@@ -149,6 +149,18 @@ def compact(
     return apply_mask(points[idx], out_mask), out_mask
 
 
+def compact_with_attrs(
+    points: torch.Tensor, mask: torch.Tensor, attrs: torch.Tensor, capacity: int
+):
+    """compact() that also gathers per-point (N, A) attributes: returns
+    (points (capacity, 3), attrs (capacity, A), mask (capacity,))."""
+    keep, _ = _keep_positions(mask, capacity, points.dtype)
+    order = torch.argsort((~keep).to(torch.uint8), stable=True)
+    idx = order[:capacity]
+    out_mask = keep[idx]
+    return apply_mask(points[idx], out_mask), attrs[idx], out_mask
+
+
 def compact_prefix(
     points: torch.Tensor, mask: torch.Tensor, capacity: int
 ) -> Tuple[torch.Tensor, torch.Tensor]:
@@ -161,6 +173,14 @@ def compact_prefix(
     idx = torch.clamp(idx, max=points.shape[0] - 1)
     out_mask = out_rank < kept
     return apply_mask(points[idx], out_mask), out_mask
+
+
+def bounds(points: torch.Tensor, mask: torch.Tensor) -> Tuple[torch.Tensor, torch.Tensor]:
+    """Masked min/max corners of a cloud (SENTINEL/-SENTINEL when empty)."""
+    big = const(SENTINEL, points)
+    lo = torch.where(mask[..., None], points, big).amin(dim=-2)
+    hi = torch.where(mask[..., None], points, -big).amax(dim=-2)
+    return lo, hi
 
 
 def dominant_blob_filter(

@@ -1,5 +1,6 @@
-"""The port on a CUDA card: the fused RANSAC-scoring kernel and the cuboid
-pipeline against their CPU/plain versions. Every test skips without a card.
+"""The port on a CUDA card: its kernels against their plain versions, and
+the cuboid pipeline and SLAM odometry against the port's CPU path. Every
+test skips without a card.
 
 This file imports neither jax nor the JAX package, so it also runs where
 the card is, which has no JAX; the tests' conftest imports jax, so run it
@@ -10,7 +11,10 @@ round each multiply and add separately). Pipeline on the card against
 the CPU with the same RANSAC triplets: same acceptance, translation
 within 1 mm, fitness within rtol 5e-2 — CUDA's ``index_add_`` adds with
 atomics, so a voxel centroid may move by an ulp and one point may cross
-the RANSAC threshold.
+the RANSAC threshold. The fused GN system (K2): equal gate counts, M and
+the gated d2 sum within rtol/atol 1e-4 (float sums in another order). The
+voxel-hash query (K3+K4): bit-identical (both round each operation).
+Odometry on the card against the CPU: poses within 1 mm over 5 frames.
 """
 
 import numpy as np
@@ -26,7 +30,13 @@ from perception_tpu_torch.models.cuboid import (
     ransac_input,
     template_features,
 )
+from perception_tpu_torch.bench.slam_scene import render_textured_room, sweep_trajectory
+from perception_tpu_torch.geometry import se3
+from perception_tpu_torch.models.slam.odometry import OdometryConfig, run_odometry
+from perception_tpu_torch.ops import voxelhash
+from perception_tpu_torch.ops.kernels import icp_gn
 from perception_tpu_torch.ops.kernels.ransac_score import ransac_score, ransac_score_reference
+from perception_tpu_torch.ops.kernels.voxelhash_query import voxelhash_query, voxelhash_query_reference
 from perception_tpu_torch.ops.ransac import _sample_indices
 
 
@@ -89,3 +99,77 @@ def test_cuda_pipeline_matches_cpu_with_same_triplets(cuda_device):
     np.testing.assert_allclose(g.fitness.numpy(), c.fitness.numpy(), rtol=5e-2)
     err = np.linalg.norm(g.pose[:, :3, 3].numpy() - gts[:, :3, 3], axis=-1)
     assert np.all(err <= 0.02)
+
+
+def gn_case(seed, r, n, m, device, all_masked=False):
+    rng = np.random.RandomState(seed)
+    src = torch.from_numpy((rng.randn(r, n, 3) * 0.3).astype(np.float32))
+    smask = torch.from_numpy(np.zeros((r, n), bool) if all_masked else rng.rand(r, n) > 0.1)
+    tgt = torch.from_numpy((rng.randn(m, 3) * 0.3).astype(np.float32))
+    nrm = torch.nn.functional.normalize(torch.from_numpy(rng.randn(m, 3).astype(np.float32)), dim=1)
+    tgtd, tn = icp_gn.pack_target(tgt, nrm, torch.from_numpy(rng.rand(m) > 0.1))
+    Ts = se3.se3_exp(torch.from_numpy((rng.randn(r, 6) * 0.02).astype(np.float32)))
+    return tuple(t.to(device) for t in (icp_gn.pack_source(src, smask), tgtd, tn, Ts))
+
+
+@pytest.mark.parametrize("r,n,m,all_masked", [(1, 4096, 8192, False), (3, 217, 100, False), (1, 512, 1024, True)])
+def test_cuda_icp_gn_matches_plain_version(cuda_device, r, n, m, all_masked):
+    args = gn_case(r + n, r, n, m, cuda_device, all_masked)
+    before = icp_gn.gn_system_packed.launches
+    M, st = icp_gn.gn_system_packed(*args, 0.25, 0.02, return_stats=True)
+    torch.cuda.synchronize()
+    assert icp_gn.gn_system_packed.launches == before + 1
+    Mr, sr = icp_gn.gn_system_reference(*args, 0.25, 0.02)
+    assert torch.equal(st[:, 0], sr[:, 0])
+    assert torch.allclose(M, Mr, rtol=1e-4, atol=1e-4)
+    assert torch.allclose(st[:, 1], sr[:, 1], rtol=1e-4, atol=1e-4)
+    assert all_masked == (not M.any())
+
+
+def test_cuda_icp_gn_rejects_what_it_cannot_take(cuda_device):
+    src8, tgtd, tn, Ts = gn_case(0, 1, 64, 32, cuda_device)
+    with pytest.raises(TypeError):
+        icp_gn.gn_system_packed(src8.double(), tgtd, tn, Ts, 0.25, 0.02)
+    with pytest.raises(ValueError):
+        icp_gn.gn_system_packed(src8, tgtd[:, :4].contiguous(), tn, Ts, 0.25, 0.02)
+    with pytest.raises(ValueError):
+        icp_gn.gn_system_packed(src8, tgtd.cpu(), tn, Ts, 0.25, 0.02)
+
+
+@pytest.mark.parametrize("m,nq,order", [(32768, 2048, "sorted"), (65536, 4096, "sorted"), (32768, 1000, "caller")])
+def test_cuda_voxelhash_query_matches_plain_version(cuda_device, m, nq, order):
+    rng = np.random.RandomState(m + nq)
+    ref = torch.from_numpy(rng.uniform(-1, 1, (m, 3)).astype(np.float32)).to(cuda_device)
+    q = ref[torch.from_numpy(rng.randint(0, m, nq)).to(cuda_device)] + 0.01 * torch.from_numpy(
+        rng.randn(nq, 3).astype(np.float32)).to(cuda_device)
+    vh = voxelhash.build(ref, torch.ones(m, dtype=torch.bool, device=cuda_device), 0.06)
+    if order == "sorted":
+        q, _ = voxelhash.sort_by_cell(vh, q)
+    args, overflow = voxelhash.kernel_args(vh, q)
+    before = voxelhash_query.launches
+    idx, d2 = voxelhash_query(*args)
+    torch.cuda.synchronize()
+    assert voxelhash_query.launches == before + 1
+    ridx, rd2 = voxelhash_query_reference(*args)
+    assert torch.equal(idx, ridx) and torch.equal(d2, rd2)
+    assert (float(overflow) > 0) == (order == "caller")
+
+
+@pytest.mark.parametrize("mode", ["fused", "hash"])
+def test_cuda_odometry_matches_cpu(cuda_device, mode):
+    w, h = 160, 120
+    fx = 307.0 * w / 320.0
+    cam = PinholeCamera.from_K([fx, 0, w / 2, 0, fx, h / 2, 0, 0, 1], width=w, height=h)
+    depths = torch.from_numpy(np.stack([render_textured_room(cam, T, seed=i)[1]
+                                        for i, T in enumerate(sweep_trajectory(n=300)[:5])]))
+    kw = dict(point_budget=1024, keyframe_budget=2048, icp_iterations=6, normal_max_edge=0.2)
+    cfg = (OdometryConfig(**kw, fused_gn="on") if mode == "fused"
+           else OdometryConfig(**kw, map_budget=8192, map_nn="hash", map_nn_radius=0.1))
+    launches = (icp_gn.gn_system_packed.launches, voxelhash_query.launches)
+    gpu, _ = run_odometry(cam, depths.to(cuda_device), cfg)
+    cpu, _ = run_odometry(cam, depths, cfg)
+    torch.cuda.synchronize()
+    k2, k3 = (icp_gn.gn_system_packed.launches - launches[0], voxelhash_query.launches - launches[1])
+    assert (k2, k3) == ((4 * 6, 0) if mode == "fused" else (0, 4 * 7))
+    gpu, cpu = torch.stack(gpu).cpu(), torch.stack(cpu)
+    assert float((gpu[:, :3, 3] - cpu[:, :3, 3]).norm(dim=-1).max()) <= 1e-3

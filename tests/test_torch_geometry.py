@@ -159,3 +159,50 @@ def test_render_depth_tabletop_matches(seed):
     assert got.shape == want.shape == (480, 640) and got.dtype == np.float32
     off = np.abs(got - want) > 1e-5
     assert off.mean() <= 1e-3, off.sum()
+
+
+def _rotations(seed):
+    """Random rotations plus the hard cases: identity, tiny and ~pi angles."""
+    w = _twists(seed)[:, 3:]
+    w[8:12] *= np.pi / np.linalg.norm(w[8:12], axis=1, keepdims=True) * 0.9999
+    return np.array(jse3.so3_exp(jnp.asarray(w)))
+
+
+def test_matrix_to_quat_and_so3_log_match():
+    R = _rotations(6)
+    np.testing.assert_allclose(
+        se3.matrix_to_quat(torch.from_numpy(R)).numpy(), np.asarray(jse3.matrix_to_quat(jnp.asarray(R))),
+        atol=ATOL, rtol=0,
+    )
+    np.testing.assert_allclose(
+        se3.so3_log(torch.from_numpy(R)).numpy(), np.asarray(jse3.so3_log(jnp.asarray(R))),
+        atol=4 * ATOL, rtol=0,  # |omega| up to pi
+    )
+
+
+@pytest.mark.parametrize("scale", [1.0, 0.01])
+def test_se3_log_inverts_exp_and_matches(scale):
+    xi = _twists(7, scale=scale)
+    xi[:, 3:] *= np.minimum(1.0, 2.5 / np.linalg.norm(xi[:, 3:] + 1e-12, axis=1, keepdims=True))
+    T = se3.se3_exp(torch.from_numpy(xi))
+    got = se3.se3_log(T).numpy()
+    want = np.asarray(jse3.se3_log(jnp.asarray(T.numpy())))
+    np.testing.assert_allclose(got, want, atol=1e-5, rtol=0)  # the V solve amplifies ulps
+    np.testing.assert_allclose(got, xi, atol=1e-4 * max(scale, 0.1), rtol=0)
+
+
+def test_orthonormalize_T_and_rotate_points_match():
+    rng = np.random.RandomState(8)
+    T = se3.se3_exp(torch.from_numpy(_twists(8)))
+    T[:, :3] += torch.from_numpy((rng.randn(64, 3, 4) * 1e-3).astype(np.float32))  # off SO(3)
+    got = se3.orthonormalize_T(T)
+    want = jse3.orthonormalize_T(jnp.asarray(T.numpy()))
+    np.testing.assert_allclose(got.numpy(), np.asarray(want), atol=ATOL, rtol=0)
+    R = got[:, :3, :3]
+    np.testing.assert_allclose((R @ R.transpose(1, 2)).numpy(), np.broadcast_to(np.eye(3), (64, 3, 3)), atol=1e-6)
+    v = rng.randn(64, 20, 3).astype(np.float32)
+    np.testing.assert_allclose(
+        se3.rotate_points(got, torch.from_numpy(v)).numpy(),
+        np.asarray(jse3.rotate_points(want, jnp.asarray(v))),
+        atol=4 * ATOL, rtol=0,
+    )

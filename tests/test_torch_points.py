@@ -162,3 +162,20 @@ def test_nearest_neighbor_batched_queries():
         i1, d1 = nn.nearest_neighbor(_t(query[a, 2]), _t(ref), torch.ones(200, dtype=torch.bool))
         np.testing.assert_array_equal(idx[a, 2].numpy(), i1.numpy())
         np.testing.assert_array_equal(d2[a, 2].numpy(), d1.numpy())
+
+
+@pytest.mark.parametrize("capacity,frac", [(300, 0.7), (2000, 0.5), (500, 0.0)])
+def test_compact_with_attrs_exact(capacity, frac):
+    pts, mask = random_cloud(11, 1500, frac)
+    attrs = np.random.RandomState(12).randn(1500, 3).astype(np.float32)
+    got = P.compact_with_attrs(_t(pts), _t(mask), _t(attrs), capacity)
+    want = JP.compact_with_attrs(jnp.asarray(pts), jnp.asarray(mask), jnp.asarray(attrs), capacity)
+    for g, w in zip(got, want):
+        np.testing.assert_array_equal(g.numpy(), np.asarray(w))
+
+
+@pytest.mark.parametrize("frac", [0.6, 0.0])
+def test_bounds_exact(frac):
+    pts, mask = random_cloud(13, 800, frac)
+    for g, w in zip(P.bounds(_t(pts), _t(mask)), JP.bounds(jnp.asarray(pts), jnp.asarray(mask))):
+        np.testing.assert_array_equal(g.numpy(), np.asarray(w))
