@@ -5,9 +5,9 @@ Builds the port's three kernels from ``perception_tpu_torch/csrc`` (one
 plain PyTorch version at the shapes its path gives it: K1, fused RANSAC
 scoring, bit-exact; K2, the fused Gauss-Newton ICP system, with equal
 gate counts and M within rtol/atol 1e-4; K3+K4, the voxel-hash query,
-bit-exact below and above 49152 table rows. Then drives the port's two
-paths through their entry points, each with the kernels' launch counts
-set to 0 just before it and read just after:
+bit-exact below and above 49152 table rows. Then drives the port's
+three paths through their entry points, each with the kernels' launch
+counts set to 0 just before it and read just after:
 
 - the cuboid pipeline at 640x480 on the 8 bench frames, through
   ``cuboid_pipeline_from_depth`` (one frame at a time) and
@@ -17,7 +17,16 @@ set to 0 just before it and read just after:
   textured-room sweep, under four configurations (keyframe mode with the
   op graph and with K2; map mode at map_budget 32768 with the shortlist
   and with the voxel hash): ATE, overlap, exact launch counts, and the
-  card against the port's CPU path over the first 5 frames.
+  card against the port's CPU path over the first 5 frames;
+- the keyframe SLAM system at 640x480 through ``run_slam`` over all 300
+  frames of the sweep (``benchmarks/slam_bench.py``'s settings), with BA
+  and without on K2, and in map mode at map_budget 32768 on the voxel
+  hash: ATE, live loop closures, BA runs that never raise their cost,
+  exact launch counts; the card against the port's CPU path over the
+  first 12 frames (same RANSAC triplets); ``slam_step``'s host syncs,
+  from torch's sync debug mode, held to the reads it states; a
+  stage-timed pass (odometry, features, matching, RANSAC+PnP, BA, pose
+  graph) and timed passes (frames/s, ms per tracking / promotion frame).
 
 Prints the card, each check and the times; then a JSON line of the
 kernels; and last ``{"ok": true, "device": {...}}``. Exits non-zero,
@@ -64,6 +73,9 @@ K3_CASES = [  # (map points, queries, query order, all map points masked)
 ]
 ODO_FRAMES = 40
 CPU_FRAMES = 5
+SLAM_FRAMES = 300        # the SLAM bench's sweep_trajectory(n=300)
+SLAM_CPU_FRAMES = 12     # card against CPU: two promotions, each with a BA run
+SLAM_PASSES = 2          # timed passes per SLAM configuration
 
 
 def require(ok, message):
@@ -360,17 +372,26 @@ def read_launches():
 
 
 def slam_scene():
-    """The SLAM bench's 640x480 camera, and the textured room along the
-    first ODO_FRAMES poses of ``sweep_trajectory(n=300)``: (camera, gt, depths)."""
+    """The SLAM bench's 640x480 camera and the textured room along
+    ``sweep_trajectory(n=300)``, rendered once (frames in parallel; seed =
+    frame index): (camera, gt (300, 4, 4), grays, depths (300, H, W))."""
     from perception_tpu_torch.bench.slam_scene import render_textured_room, sweep_trajectory
     from perception_tpu_torch.geometry.camera import PinholeCamera
 
     w, h = 640, 480
     fx = 307.0 * w / 320.0
     camera = PinholeCamera.from_K([fx, 0, w / 2, 0, fx, h / 2, 0, 0, 1], width=w, height=h)
-    gt = sweep_trajectory(n=300)[:ODO_FRAMES]
-    depths = np.stack([render_textured_room(camera, T, seed=i)[1] for i, T in enumerate(gt)])
-    return camera, np.stack(gt), depths
+    gt = sweep_trajectory(n=SLAM_FRAMES)
+    with ThreadPoolExecutor(8) as pool:
+        frames = list(pool.map(lambda i: render_textured_room(camera, gt[i], seed=i), range(SLAM_FRAMES)))
+    grays = np.stack([g for g, _ in frames])
+    depths = np.stack([d for _, d in frames])
+    return camera, np.stack(gt), grays, depths
+
+
+# benchmarks/slam_bench.py's odometry settings.
+BENCH_ODOM = dict(point_budget=2048, keyframe_budget=4096, icp_iterations=8, min_depth=0.1,
+                  max_depth=6.0, normal_max_edge=0.1, kf_translation=0.10, kf_rotation=0.12)
 
 
 def odometry_configs():
@@ -379,14 +400,11 @@ def odometry_configs():
     (shortlist, then the voxel hash)."""
     from perception_tpu_torch.models.slam.odometry import OdometryConfig
 
-    bench_map = dict(point_budget=2048, keyframe_budget=4096, icp_iterations=8, min_depth=0.1,
-                     max_depth=6.0, normal_max_edge=0.1, kf_translation=0.10, kf_rotation=0.12,
-                     map_budget=32768)
     return {
         "keyframe fused_gn=auto": OdometryConfig(fused_gn="auto"),
         "keyframe fused_gn=on": OdometryConfig(fused_gn="on"),
-        "map 32768 map_nn=auto": OdometryConfig(**bench_map, map_nn="auto"),
-        "map 32768 map_nn=hash": OdometryConfig(**bench_map, map_nn="hash"),
+        "map 32768 map_nn=auto": OdometryConfig(**BENCH_ODOM, map_budget=32768, map_nn="auto"),
+        "map 32768 map_nn=hash": OdometryConfig(**BENCH_ODOM, map_budget=32768, map_nn="hash"),
     }
 
 
@@ -400,16 +418,15 @@ def expected_launches(cfg, steps):
     }
 
 
-def run_odometry_paths(device):
-    """Drive run_odometry at 640x480 under the four configurations and
-    check each; returns (kernel launches of the counted runs, frames/s)."""
+def run_odometry_paths(device, scene):
+    """Drive run_odometry at 640x480 over the scene's first ODO_FRAMES
+    frames under the four configurations and check each; returns (kernel
+    launches of the counted runs, frames/s)."""
     from perception_tpu_torch.models.slam.odometry import run_odometry
     from perception_tpu_torch.utils.metrics import ate
 
-    t0 = time.perf_counter()
-    camera, gt, depths_np = slam_scene()
-    print(f"odometry scene: {ODO_FRAMES} frames {camera.width}x{camera.height}, fx {camera.fx:.1f}, "
-          f"rendered in {time.perf_counter() - t0:.1f} s")
+    camera, gt, _, depths_np = scene
+    gt, depths_np = gt[:ODO_FRAMES], depths_np[:ODO_FRAMES]
     depths = torch.from_numpy(depths_np).to(device)
     launches, rates = {}, {}
     for name, cfg in odometry_configs().items():
@@ -462,6 +479,283 @@ def frames_per_s(fn, frames, passes=3):
     return statistics.median(rates), rates
 
 
+def slam_configs():
+    """benchmarks/slam_bench.py's three configurations, with the engine
+    named: keyframe mode with BA and without (the bench's ablation), each
+    on K2, and map fusion at map_budget 32768 on the voxel hash."""
+    from perception_tpu_torch.models.slam.odometry import OdometryConfig
+    from perception_tpu_torch.models.slam.system import SlamConfig
+
+    slam = dict(max_keyframes=64, max_edges=192, features_per_kf=256, fast_threshold=15.0,
+                lc_min_gap=3, lc_min_matches=20, lc_min_inliers=10)
+    k2 = OdometryConfig(**BENCH_ODOM, fused_gn="on")
+    return {
+        "slam keyframe+BA K2": SlamConfig(odometry=k2, **slam),
+        "slam keyframe no-BA K2": SlamConfig(odometry=k2, enable_ba=False, **slam),
+        "slam map 32768 hash": SlamConfig(
+            odometry=OdometryConfig(**BENCH_ODOM, map_budget=32768, map_nn="hash"), **slam),
+    }
+
+
+def slam_summary(state, diags):
+    """The SLAM bench's counts (benchmarks/slam_bench.py) and the BA costs."""
+    def stack(field):
+        return torch.stack([getattr(d, field) for d in diags]).cpu()
+
+    ba = stack("ba_ran")
+    return {
+        "keyframes": int(state.keyframes.count),
+        "loop_closures": int(((state.edges.weight == 2.0) & state.edges.mask).sum()),
+        "ba_runs": int(ba.sum()),
+        "landmarks": int(state.landmarks.mask.sum()),
+        "observations": int(state.obs.mask.sum()),
+        "promoted": stack("promoted").numpy(),
+        "ba_ran": ba.numpy(),
+        "ba_cost0": stack("ba_cost0").numpy(),
+        "ba_cost1": stack("ba_cost1").numpy(),
+    }
+
+
+def slam_pass(camera, depths, grays, cfg, step=None):
+    """One timed pass of the slam_step loop over frames already on the
+    card: (frames/s over the 299 steps as the SLAM bench counts them, ms
+    of each step, promoted flags). Each step reads ``promoted`` anyway, so
+    the synchronize after it costs little."""
+    from perception_tpu_torch.models.slam import system
+
+    step = step or system.slam_step
+    state = system.slam_init(camera, depths[0], grays[0], cfg)
+    gen = torch.Generator(device=depths.device).manual_seed(0)
+    torch.cuda.synchronize()
+    ms, promoted = [], []
+    t0 = time.perf_counter()
+    for i in range(1, len(depths)):
+        t = time.perf_counter()
+        state, diag = step(state, depths[i], grays[i], camera, gen, cfg)
+        torch.cuda.synchronize()
+        ms.append((time.perf_counter() - t) * 1e3)
+        promoted.append(bool(diag.promoted))
+    fps = (len(depths) - 1) / (time.perf_counter() - t0)
+    return fps, np.array(ms), np.array(promoted)
+
+
+STAGES = {  # stage -> the system module's names it times
+    "odometry": ("odometry_step",),
+    "features": ("_kf_features",),
+    "matching": ("match_descriptors",),
+    "ransac+pnp": ("_draw_triplets", "ransac_rigid", "pnp_gn"),
+    "ba": ("bundle_adjust",),
+    "pose graph": ("optimize_pose_graph",),
+}
+
+
+def slam_stage_times(camera, depths, grays, cfg):
+    """One pass with a synchronize around each stage: median ms per stage
+    over tracking frames and over promotion frames."""
+    from perception_tpu_torch.models.slam import system
+
+    acc = {}
+    saved = {}
+
+    def timed(fn, stage):
+        def wrapper(*args, **kwargs):
+            torch.cuda.synchronize()
+            t = time.perf_counter()
+            out = fn(*args, **kwargs)
+            torch.cuda.synchronize()
+            acc[stage] = acc.get(stage, 0.0) + (time.perf_counter() - t) * 1e3
+            return out
+        return wrapper
+
+    rows = []
+
+    def step(*args):
+        acc.clear()
+        t = time.perf_counter()
+        out = system.slam_step(*args)
+        torch.cuda.synchronize()
+        row = dict(acc, step=(time.perf_counter() - t) * 1e3)
+        row["rest"] = row["step"] - sum(v for k, v in row.items() if k != "step")
+        rows.append(row)
+        return out
+
+    for stage, names in STAGES.items():
+        for n in names:
+            saved[n] = getattr(system, n)
+            setattr(system, n, timed(saved[n], stage))
+    try:
+        _, _, promoted = slam_pass(camera, depths, grays, cfg, step=step)
+    finally:
+        for n, fn in saved.items():
+            setattr(system, n, fn)
+    keys = list(STAGES) + ["rest", "step"]
+    out = {}
+    for kind, sel in (("tracking", ~promoted), ("promotion", promoted)):
+        out[kind] = {k: float(np.median([r.get(k, 0.0) for r, p in zip(rows, sel) if p])) for k in keys}
+    return out
+
+
+def host_syncs(camera, depths, grays, cfg, frames):
+    """The host syncs of slam_step over the first frames, from torch's sync
+    debug mode: one (kind, Counter of "file:line") per step, kind
+    "tracking" or "promotion"."""
+    import collections
+    import traceback
+    import warnings
+
+    from perception_tpu_torch.models.slam import system
+
+    state = system.slam_init(camera, depths[0], grays[0], cfg)
+    gen = torch.Generator(device=depths.device).manual_seed(0)
+    torch.cuda.synchronize()
+    steps = []
+
+    def record(message, category, filename, lineno, file=None, line=None):
+        if "synchroniz" in str(message):
+            where = filename.split("site-packages/")[-1].split("perception_tpu_torch/")[-1]
+            site = f"{where}:{lineno}"
+            if where.startswith("torch/"):  # name the port's line that got there
+                port = [f for f in traceback.extract_stack() if "/perception_tpu_torch/" in f.filename]
+                if port:
+                    site += f" via {port[-1].filename.split('perception_tpu_torch/')[-1]}:{port[-1].lineno}"
+            sites[site] += 1
+
+    for i in range(1, frames):
+        sites = collections.Counter()
+        with warnings.catch_warnings():
+            warnings.simplefilter("always")
+            warnings.showwarning = record
+            torch.cuda.set_sync_debug_mode("warn")
+            try:
+                state, diag = system.slam_step(state, depths[i], grays[i], camera, gen, cfg)
+            finally:
+                torch.cuda.set_sync_debug_mode("default")
+        steps.append(("promotion" if bool(diag.promoted) else "tracking", sites))
+    return steps
+
+
+def check_host_syncs(name, cfg, steps):
+    """Print the syncs per kind of frame and hold them to slam_step's
+    contract: its own reads (``_read_flag`` in system.py) are 1 on a
+    tracking frame and 1 + ``loop_ok`` + ``do_ba`` on a promotion frame;
+    odometry reads ``promote`` once a frame in map mode; the rigid fit's
+    ``torch.linalg.svd`` syncs inside the library on promotion frames; a
+    sync in torch/cuda/__init__.py is CUDA's lazy initialisation."""
+    import collections
+
+    for kind in ("tracking", "promotion"):
+        total = collections.Counter()
+        for k, sites in steps:
+            if k == kind:
+                total.update(sites)
+        n = sum(k == kind for k, _ in steps)
+        print(f"{name} host syncs (torch sync debug mode), {n} {kind} frames: "
+              f"{sum(total.values()) / max(n, 1):.2f} per frame, by line {dict(total)}")
+    own_promotion = 1 + int(cfg.correct_in_step) + int(cfg.enable_ba)
+    for kind, sites in steps:
+        by_file = collections.Counter()
+        for site, count in sites.items():
+            by_file[site.split(" via ")[0].rsplit(":", 1)[0]] += count
+        require(by_file.pop("models/slam/system.py", 0) == (1 if kind == "tracking" else own_promotion),
+                f"{name}: slam_step's own host reads on a {kind} frame are not as stated")
+        require(by_file.pop("models/slam/odometry.py", 0) == int(cfg.odometry.map_budget > 0),
+                f"{name}: odometry's host reads are not one a frame in map mode and none otherwise")
+        require(kind == "promotion" or "ops/registration.py" not in by_file,
+                f"{name}: the rigid fit ran on a tracking frame")
+        by_file.pop("ops/registration.py", None)
+        by_file.pop("torch/cuda/__init__.py", None)
+        require(not by_file, f"{name}: host syncs at {dict(by_file)}")
+
+
+def run_slam_paths(device, scene):
+    """Drive the keyframe SLAM system (run_slam) at 640x480 over the
+    300-frame sweep under the three configurations and check each; returns
+    the kernel launches of the counted runs."""
+    from perception_tpu_torch.models.slam import system
+    from perception_tpu_torch.ops.ransac import _sample_indices
+    from perception_tpu_torch.utils.metrics import ate
+
+    camera, gt, grays_np, depths_np = scene
+    depths = torch.from_numpy(depths_np).to(device)
+    grays = torch.from_numpy(grays_np).to(device)
+    launches = {}
+    for n_cfg, (name, cfg) in enumerate(slam_configs().items()):
+        # The path, counted.
+        reset_launches()
+        t0 = time.perf_counter()
+        state, poses, diags = system.run_slam(camera, depths, grays, cfg)
+        torch.cuda.synchronize()
+        first_s = time.perf_counter() - t0
+        counts = read_launches()
+        want = expected_launches(cfg.odometry, SLAM_FRAMES - 1)
+        for k, v in counts.items():
+            launches[k] = launches.get(k, 0) + v
+        est = torch.stack(poses).cpu()
+        res = ate(est.numpy().astype(np.float64), gt, align=False)
+        s = slam_summary(state, diags)
+        ran = s["ba_ran"]
+        print(f"{name}: ATE rmse {res.rmse * 100:.3f} cm (max {res.max * 100:.3f}), keyframes {s['keyframes']}, "
+              f"loop closures {s['loop_closures']}, BA runs {s['ba_runs']}, landmarks {s['landmarks']}, "
+              f"observations {s['observations']}, launches {counts}, counted run {first_s:.1f} s")
+        if s["ba_runs"]:
+            print(f"{name}: BA cost px^2 before/after, median {np.median(s['ba_cost0'][ran]):.4f} / "
+                  f"{np.median(s['ba_cost1'][ran]):.4f}, worst after-before "
+                  f"{float((s['ba_cost1'][ran] - s['ba_cost0'][ran]).max()):.3e}")
+        require(counts == want, f"{name}: kernel launches {counts}, expected {want}")
+        require(est.shape == (SLAM_FRAMES, 4, 4) and bool(torch.isfinite(est).all()), f"{name}: bad poses")
+        require(res.rmse <= 0.02, f"{name}: ATE over 2 cm")
+        require(s["loop_closures"] >= 1, f"{name}: no live loop-closure edge")
+        if cfg.enable_ba:
+            require(s["ba_runs"] >= 1, f"{name}: BA never ran")
+            require(bool(np.all(s["ba_cost1"][ran] <= s["ba_cost0"][ran])), f"{name}: a BA run raised its cost")
+        else:
+            require(s["ba_runs"] == 0, f"{name}: BA ran with enable_ba=False")
+
+        if n_cfg == 0:
+            # The card against the port's CPU path, with the same RANSAC triplets.
+            first = np.flatnonzero(s["promoted"][:SLAM_CPU_FRAMES - 1]) + 1
+            first_ba = np.flatnonzero(s["ba_ran"][:SLAM_CPU_FRAMES - 1]) + 1
+            require(len(first) and len(first_ba), f"no promotion with BA in the first {SLAM_CPU_FRAMES} frames")
+            saved = system._draw_triplets
+            runs = {}
+            try:
+                for dev in (device, "cpu"):
+                    draws = iter(range(1000))
+                    system._draw_triplets = lambda g, m, k: _sample_indices(  # noqa: E731
+                        torch.Generator().manual_seed(next(draws)), m.cpu(), k).to(m.device)
+                    n = SLAM_CPU_FRAMES
+                    _, p, _ = system.run_slam(camera, depths[:n].to(dev), grays[:n].to(dev), cfg)
+                    runs[str(dev)] = torch.stack(p).cpu()
+            finally:
+                system._draw_triplets = saved
+            g, c = runs[str(device)], runs["cpu"]
+            dt = float((g[:, :3, 3] - c[:, :3, 3]).norm(dim=-1).max())
+            dr = float((g[:, :3, :3] - c[:, :3, :3]).abs().max())
+            print(f"{name} cuda vs cpu, first {SLAM_CPU_FRAMES} frames (promotions at frames {first.tolist()}, "
+                  f"BA at {first_ba.tolist()}): translation diff max {dt * 1e3:.6f} mm, "
+                  f"rotation entry diff max {dr:.3e}")
+            require(dt <= 1e-3, f"{name}: CUDA and CPU poses differ by more than 1 mm")
+
+            stages = slam_stage_times(camera, depths, grays, cfg)
+            for kind, row in stages.items():
+                print(f"{name} stage ms ({kind} frame, median, synchronized): "
+                      + ", ".join(f"{k} {v:.2f}" for k, v in row.items()))
+
+        check_host_syncs(name, cfg, host_syncs(camera, depths, grays, cfg, SLAM_CPU_FRAMES))
+
+        rates, ms, promoted = [], [], []
+        for _ in range(SLAM_PASSES):
+            fps, frame_ms, prom = slam_pass(camera, depths, grays, cfg)
+            rates.append(fps)
+            ms.append(frame_ms)
+            promoted.append(prom)
+        ms, promoted = np.concatenate(ms), np.concatenate(promoted)
+        print(f"{name}: {statistics.median(rates):.2f} frames/s (passes {[round(r, 2) for r in rates]}), "
+              f"median ms tracking frame {np.median(ms[~promoted]):.2f}, promotion frame "
+              f"{np.median(ms[promoted]):.2f} ({int(promoted.sum()) // SLAM_PASSES} promotions a pass)")
+    return launches
+
+
 def main() -> int:
     if not torch.cuda.is_available():
         print("chip_smoke: torch.cuda.is_available() is False; this run needs a CUDA card",
@@ -495,7 +789,12 @@ def main() -> int:
     k3_err = check_k3(device)
 
     cuboid_launches, one, batch = run_slice(device)
-    odo_launches, _ = run_odometry_paths(device)
+    t0 = time.perf_counter()
+    scene = slam_scene()
+    print(f"SLAM scene: {SLAM_FRAMES} frames {scene[0].width}x{scene[0].height}, fx {scene[0].fx:.1f}, "
+          f"rendered in {time.perf_counter() - t0:.1f} s")
+    odo_launches, _ = run_odometry_paths(device, scene)
+    slam_launches = run_slam_paths(device, scene)
 
     k1_times = time_kernel(device)
     k2_times = time_k2(device)
@@ -521,7 +820,7 @@ def main() -> int:
             "route": "cuda",
             "source": "perception_tpu_torch/csrc/icp_gn.cu",
             "replaces": "perception_tpu/ops/pallas/icp_gn.py:223",
-            "launches": odo_launches["icp_gn"],
+            "launches": odo_launches["icp_gn"] + slam_launches["icp_gn"],
             "max_abs_err": k2_err,
             "ms": k2_times[(4096, 8192)][0],
             "plain_ms": k2_times[(4096, 8192)][1],
@@ -531,7 +830,7 @@ def main() -> int:
             "route": "cuda",
             "source": "perception_tpu_torch/csrc/voxelhash_query.cu",
             "replaces": "perception_tpu/ops/voxelhash.py:285 (K3), perception_tpu/ops/voxelhash.py:201 (K4)",
-            "launches": odo_launches["voxelhash_query"],
+            "launches": odo_launches["voxelhash_query"] + slam_launches["voxelhash_query"],
             "max_abs_err": k3_err,
             "ms": k3_times[(32768, 2048)][0],
             "plain_ms": k3_times[(32768, 2048)][1],

@@ -6,8 +6,9 @@ anything of ``perception_tpu``. Importing it builds nothing: the CUDA
 kernels under ``csrc/`` are compiled at first use on a CUDA tensor
 (``ops/kernels/build.py``).
 
-Ported so far: the cuboid pipeline (``models/cuboid.py``) and SLAM
-odometry (``models/slam/odometry.py``), with what they run, including
-the three kernels under ``csrc/``: fused RANSAC scoring, the fused
-Gauss-Newton ICP system and the voxel-hash query.
+Ported so far: the cuboid pipeline (``models/cuboid.py``), SLAM
+odometry (``models/slam/odometry.py``) and the keyframe SLAM system on it
+(``models/slam/system.py``, ``models/slam/backend.py``), with what they
+run, including the three kernels under ``csrc/``: fused RANSAC scoring,
+the fused Gauss-Newton ICP system and the voxel-hash query.
 """

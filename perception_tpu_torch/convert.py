@@ -4,8 +4,11 @@ The pipelines have no weights. The cuboid pipeline's state is the camera
 and the preprocessed template (``template_features``' points, normals
 and mask): ``state_from_jax`` takes them as numpy arrays (``np.asarray``
 of the JAX side's values). Odometry's state is an ``OdometryState``:
-``odometry_state_from_jax`` takes one whose leaves are numpy arrays. So
-both packages compute on the same state.
+``odometry_state_from_jax`` takes one whose leaves are numpy arrays. The
+keyframe SLAM system's state is a ``SlamState``: ``slam_state_from_jax``
+takes one the same way, and views the BRIEF descriptors (``uint32`` in
+JAX) as the port's ``int32`` words. So both packages compute on the same
+state.
 """
 
 from __future__ import annotations
@@ -17,6 +20,13 @@ import torch
 
 from perception_tpu_torch.geometry.camera import PinholeCamera
 from perception_tpu_torch.models.slam.odometry import OdometryState
+from perception_tpu_torch.models.slam.system import (
+    EdgeList,
+    KeyframeStore,
+    LandmarkTable,
+    ObsTable,
+    SlamState,
+)
 from perception_tpu_torch.ops.voxelhash import VoxelHash
 
 
@@ -53,3 +63,24 @@ def odometry_state_from_jax(state, device="cpu") -> OdometryState:
     vh = state.map_hash
     fields["map_hash"] = VoxelHash(*(_leaf(getattr(vh, name), device) for name in VoxelHash._fields))
     return OdometryState(**fields)
+
+
+def slam_state_from_jax(state, device="cpu") -> SlamState:
+    """A JAX ``SlamState`` whose leaves are numpy arrays
+    (``jax.tree.map(np.asarray, state)``) -> the port's state on ``device``."""
+    kf = state.keyframes
+    keyframes = {name: _leaf(getattr(kf, name), device) for name in KeyframeStore._fields}
+    keyframes["desc"] = _leaf(np.asarray(kf.desc).view(np.int32), device)
+
+    def table(cls, value):
+        return cls(*(_leaf(getattr(value, name), device) for name in cls._fields))
+
+    return SlamState(
+        odom=odometry_state_from_jax(state.odom, device),
+        keyframes=KeyframeStore(**keyframes),
+        landmarks=table(LandmarkTable, state.landmarks),
+        obs=table(ObsTable, state.obs),
+        edges=table(EdgeList, state.edges),
+        current_kf=_leaf(state.current_kf, device),
+        loop_found=_leaf(state.loop_found, device),
+    )

@@ -26,20 +26,20 @@ class PlaneFit(NamedTuple):
     valid: torch.Tensor         # (...,) bool — a usable hypothesis was found
 
 
-def _sample_indices(generator: torch.Generator, mask: torch.Tensor, num: int) -> torch.Tensor:
-    """(..., num, 3) int64 indices of valid points, uniform over the mask.
+def _sample_indices(generator: torch.Generator, mask: torch.Tensor, num: int, k: int = 3) -> torch.Tensor:
+    """(..., num, k) int64 indices of valid points, uniform over the mask.
 
     Inverse CDF over the mask's cumsum: draw uniform valid ranks in
     [1, cnt], then one ``searchsorted(side="left")`` maps rank -> row.
     The uniforms come from ``generator`` on its own device."""
     csum = torch.cumsum(mask.to(torch.int64), dim=-1)
     cnt = torch.clamp(csum[..., -1:], min=1)  # (..., 1)
-    u = torch.rand(mask.shape[:-1] + (num * 3,), generator=generator,
+    u = torch.rand(mask.shape[:-1] + (num * k,), generator=generator,
                    device=generator.device, dtype=torch.float64).to(mask.device)
     ranks = torch.minimum((u * cnt).to(torch.int64) + 1, cnt)
     idx = torch.searchsorted(csum, ranks, side="left")
     idx = torch.clamp(idx, max=mask.shape[-1] - 1)
-    return idx.reshape(mask.shape[:-1] + (num, 3))
+    return idx.reshape(mask.shape[:-1] + (num, k))
 
 
 def _plane_from_triplets(p0, p1, p2) -> Tuple[torch.Tensor, torch.Tensor, torch.Tensor]:

@@ -15,6 +15,12 @@ the RANSAC threshold. The fused GN system (K2): equal gate counts, M and
 the gated d2 sum within rtol/atol 1e-4 (float sums in another order). The
 voxel-hash query (K3+K4): bit-identical (both round each operation).
 Odometry on the card against the CPU: poses within 1 mm over 5 frames.
+The SLAM front end on the card against the CPU: FAST keypoints, scores
+and masks equal, angles within 1e-4, BRIEF descriptors within 2 differing
+bits (``cos``/``sin`` round differently), Hamming matches equal on the
+same descriptors; ``bundle_adjust`` within 1e-4; ``slam_step`` over the
+20-frame 96x72 out-and-back scene with the same RANSAC triplets: the same
+promotions, closures and BA runs, poses within 1 mm.
 """
 
 import numpy as np
@@ -32,11 +38,15 @@ from perception_tpu_torch.models.cuboid import (
 )
 from perception_tpu_torch.bench.slam_scene import render_textured_room, sweep_trajectory
 from perception_tpu_torch.geometry import se3
+from perception_tpu_torch.models.slam import system
+from perception_tpu_torch.models.slam.backend import BAProblem, bundle_adjust
 from perception_tpu_torch.models.slam.odometry import OdometryConfig, run_odometry
+from perception_tpu_torch.ops import features
 from perception_tpu_torch.ops import voxelhash
 from perception_tpu_torch.ops.kernels import icp_gn
 from perception_tpu_torch.ops.kernels.ransac_score import ransac_score, ransac_score_reference
 from perception_tpu_torch.ops.kernels.voxelhash_query import voxelhash_query, voxelhash_query_reference
+from perception_tpu_torch.ops import ransac
 from perception_tpu_torch.ops.ransac import _sample_indices
 
 
@@ -172,4 +182,88 @@ def test_cuda_odometry_matches_cpu(cuda_device, mode):
     k2, k3 = (icp_gn.gn_system_packed.launches - launches[0], voxelhash_query.launches - launches[1])
     assert (k2, k3) == ((4 * 6, 0) if mode == "fused" else (0, 4 * 7))
     gpu, cpu = torch.stack(gpu).cpu(), torch.stack(cpu)
+    assert float((gpu[:, :3, 3] - cpu[:, :3, 3]).norm(dim=-1).max()) <= 1e-3
+
+
+def small_slam_scene():
+    """The 96x72 camera and 20-frame out-and-back trajectory of the SLAM
+    system tests, rendered by the port's scene (no JAX here)."""
+    cam = PinholeCamera.from_K([60.0, 0, 48, 0, 60.0, 36, 0, 0, 1], width=96, height=72)
+    gt = []
+    for k in range(20):
+        dist = (k if k <= 9.5 else 19 - k) * (0.5 / 9.5)
+        tw = torch.tensor([dist, 0.0, 0.0, 0.0, 0.02 * np.sin(np.pi * k / 19), 0.0])
+        gt.append(se3.se3_exp(tw).numpy())
+    frames = [render_textured_room(cam, T, seed=i) for i, T in enumerate(gt)]
+    cfg = system.SlamConfig(
+        odometry=OdometryConfig(point_budget=1024, keyframe_budget=2048, icp_iterations=8, min_depth=0.1,
+                                max_depth=6.0, normal_max_edge=0.5, kf_translation=0.08, kf_rotation=0.1),
+        max_keyframes=16, max_edges=40, features_per_kf=128, fast_threshold=15.0, lc_min_gap=2,
+        lc_min_matches=15, lc_min_inliers=8,
+    )
+    grays = torch.from_numpy(np.stack([g for g, _ in frames]))
+    depths = torch.from_numpy(np.stack([d for _, d in frames]))
+    return cam, cfg, grays, depths
+
+
+def test_cuda_features_match_cpu(cuda_device):
+    _, _, grays, _ = small_slam_scene()
+    gray = grays[0]
+    out = {}
+    for dev in ("cpu", cuda_device):
+        kps = features.fast_detect(gray.to(dev), threshold=15.0, max_keypoints=128)
+        desc = features.brief_describe(gray.to(dev), kps)
+        out[str(dev)] = [t.cpu() for t in (*kps, desc)]
+    (uv, score, angle, mask, desc), (guv, gscore, gangle, gmask, gdesc) = out["cpu"], out[str(cuda_device)]
+    assert torch.equal(uv, guv) and torch.equal(mask, gmask) and int(mask.sum()) > 20
+    assert torch.allclose(gscore, score, rtol=1e-6, atol=0) and torch.allclose(gangle, angle, atol=1e-4, rtol=0)
+    bits = features.popcount32(desc ^ gdesc).sum(dim=1)
+    assert int(bits.max()) <= 2
+    other = torch.roll(desc, 7, 0)
+    m = [features.match_descriptors(desc.to(dev), mask.to(dev), other.to(dev), mask.to(dev), max_matches=128)
+         for dev in ("cpu", cuda_device)]
+    assert all(torch.equal(a, b.cpu()) for a, b in zip(*m))
+
+
+def test_cuda_bundle_adjust_matches_cpu(cuda_device):
+    rng = np.random.RandomState(0)
+    L, M = 60, 4
+    lms = np.stack([rng.uniform(-1, 1, L), rng.uniform(-0.8, 0.8, L), rng.uniform(2.0, 4.0, L)], 1)
+    poses = se3.se3_exp(torch.tensor([[0.3 * k, 0, 0, 0, 0.02 * k, 0] for k in range(M)])).numpy()
+    obs = []
+    for k in range(M):
+        T_cw = np.linalg.inv(poses[k])
+        pc = lms @ T_cw[:3, :3].T + T_cw[:3, 3]
+        for l in range(L):
+            uv = 525.0 * pc[l, :2] / pc[l, 2] + [319.5, 239.5] + rng.randn(2) * 0.3
+            obs.append((k, l, *uv, pc[l, 2]))
+    obs = np.array(obs)
+    init = poses @ se3.se3_exp(torch.from_numpy((rng.randn(M, 6) * 0.02).astype(np.float32))).numpy()
+    init[0] = poses[0]
+    f32 = lambda a: torch.from_numpy(np.asarray(a, np.float32))  # noqa: E731
+    problem = BAProblem(f32(init), f32(lms + rng.randn(L, 3) * 0.02), torch.from_numpy(obs[:, 0].astype(np.int32)),
+                        torch.from_numpy(obs[:, 1].astype(np.int32)), f32(obs[:, 2:4]),
+                        torch.ones(len(obs), dtype=torch.bool), f32(obs[:, 4]), f32(525.0 / obs[:, 4]))
+    res = [bundle_adjust(BAProblem(*(t.to(dev) for t in problem)), 525.0, 525.0, 319.5, 239.5, iterations=6)
+           for dev in ("cpu", cuda_device)]
+    c, g = res[0], type(res[1])(*(t.cpu() for t in res[1]))
+    assert float(g.final_cost) < float(g.initial_cost)
+    for a, b in zip(c, g):
+        assert torch.allclose(a, b, atol=1e-4, rtol=1e-4)
+
+
+def test_cuda_slam_step_matches_cpu(cuda_device, monkeypatch):
+    cam, cfg, grays, depths = small_slam_scene()
+    runs = {}
+    for dev in ("cpu", cuda_device):
+        draws = iter(range(1000))
+        monkeypatch.setattr(system, "_draw_triplets", lambda g, m, k: ransac._sample_indices(
+            torch.Generator().manual_seed(next(draws)), m.cpu(), k).to(m.device))
+        before = icp_gn.gn_system_packed.launches
+        state, poses, diags = system.run_slam(cam, depths.to(dev), grays.to(dev), cfg)
+        flags = [(bool(d.promoted), int(d.loop_candidate), bool(d.ba_ran)) for d in diags]
+        runs[str(dev)] = torch.stack(poses).cpu(), flags, icp_gn.gn_system_packed.launches - before
+    (cpu, cflags, _), (gpu, gflags, launches) = runs["cpu"], runs[str(cuda_device)]
+    assert cflags == gflags and launches == 0  # keyframe mode with the op graph
+    assert sum(f[0] for f in cflags) >= 5 and sum(f[1] >= 0 for f in cflags) >= 1 and sum(f[2] for f in cflags) >= 1
     assert float((gpu[:, :3, 3] - cpu[:, :3, 3]).norm(dim=-1).max()) <= 1e-3
