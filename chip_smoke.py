@@ -28,6 +28,18 @@ counts set to 0 just before it and read just after:
   stage-timed pass (odometry, features, matching, RANSAC+PnP, BA, pose
   graph) and timed passes (frames/s, ms per tracking / promotion frame).
 
+Each kernel is timed at its path's shapes against its plain version, in
+turns (plain, kernel, kernel, plain): the kernel's eager wrapper call by
+CUDA events, and its device time by replaying a CUDA graph of its
+wrapper's calls (without the wrapper's host cost); beside them its
+bound, the least time the card could take for the same work (f32
+operations at 67 TFLOP/s or bytes at 3.35 TB/s, whichever is longer;
+K3+K4's work is read from the timed call's chunk counts), and the share
+of that bound. ``kernel_times.py`` times the same calls alone. In the SLAM
+phase, torch.profiler over the first frames of keyframe+BA K2 and map
+32768 hash gives the device busy share and K2's and K3+K4's device time
+per frame.
+
 Prints the card, each check and the times; then a JSON line of the
 kernels; and last ``{"ok": true, "device": {...}}``. Exits non-zero,
 without that line, when there is no card or any check fails.
@@ -76,6 +88,9 @@ CPU_FRAMES = 5
 SLAM_FRAMES = 300        # the SLAM bench's sweep_trajectory(n=300)
 SLAM_CPU_FRAMES = 12     # card against CPU: two promotions, each with a BA run
 SLAM_PASSES = 2          # timed passes per SLAM configuration
+PROFILE_FRAMES = 30      # slam_step calls under torch.profiler (keyframe+BA K2, map hash)
+PEAK_F32_OPS = 67e12     # H100 SXM, f32 outside the tensor cores (NVIDIA's data sheet)
+PEAK_BYTES = 3.35e12     # H100 SXM HBM3
 
 
 def require(ok, message):
@@ -108,6 +123,85 @@ def cuda_ms(fn, iters):
     return start.elapsed_time(stop) / iters
 
 
+def bound(ops, nbytes):
+    """The least time in ms for ``ops`` f32 operations (every multiply, add
+    and compare one; the kernels forbid FMA contraction) and ``nbytes``
+    moved, and which of the two sets it."""
+    t_ops, t_bytes = ops / PEAK_F32_OPS * 1e3, nbytes / PEAK_BYTES * 1e3
+    return (t_ops, "operations") if t_ops >= t_bytes else (t_bytes, "bytes")
+
+
+def nbytes(*tensors):
+    return sum(t.numel() * t.element_size() for t in tensors)
+
+
+def graph_ms(fn, calls=20, replays=10):
+    """Device time of one ``fn()`` in ms: a CUDA graph of ``calls`` calls,
+    replayed ``replays`` times between CUDA events (no host cost)."""
+    fn()
+    torch.cuda.synchronize()
+    graph = torch.cuda.CUDAGraph()
+    with torch.cuda.graph(graph):
+        for _ in range(calls):
+            fn()
+    graph.replay()
+    torch.cuda.synchronize()
+    start, stop = torch.cuda.Event(enable_timing=True), torch.cuda.Event(enable_timing=True)
+    start.record()
+    for _ in range(replays):
+        graph.replay()
+    stop.record()
+    torch.cuda.synchronize()
+    return start.elapsed_time(stop) / (calls * replays)
+
+
+def profile_launches(fn, calls=20):
+    """{kernel: mean device us per launch} over ``calls`` eager calls, by
+    torch.profiler (a process that profiled before may drop events, so
+    only per-launch means are kept)."""
+    import re
+
+    from torch.autograd import DeviceType
+    from torch.profiler import ProfilerActivity, profile
+
+    fn()
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+        for _ in range(calls):
+            fn()
+        torch.cuda.synchronize()
+    total, count = {}, {}
+    for e in prof.events():
+        if e.device_type == DeviceType.CUDA:
+            m = re.search(r"[a-z][a-z_]*_kernel", e.name)
+            name = m.group(0) if m else e.name[:40]
+            total[name] = total.get(name, 0.0) + (e.time_range.end - e.time_range.start)
+            count[name] = count.get(name, 0) + 1
+    return {name: total[name] / count[name] for name in total}
+
+
+def timed(label, kernel, plain, work, plain_iters=10):
+    """Time ``kernel`` against ``plain`` in turns (plain, kernel, kernel,
+    plain), each by CUDA events: the kernel's eager wrapper call (``ms``,
+    as every earlier run timed it) and, beside it, its device time by
+    CUDA-graph replay (``device_ms``, without the wrapper's host cost);
+    then its kernels' device time per launch (torch.profiler) and its
+    bound from ``work()`` -> (operations, bytes), read after the timing
+    window. Prints them and returns a dict of the numbers."""
+    runs = [cuda_ms(plain, plain_iters), (cuda_ms(kernel, 100), graph_ms(kernel)),
+            (cuda_ms(kernel, 100), graph_ms(kernel)), cuda_ms(plain, plain_iters)]
+    ops, moved = work()
+    b_ms, b_by = bound(ops, moved)
+    ms, device = min(runs[1][0], runs[2][0]), min(runs[1][1], runs[2][1])
+    print(f"time {label}: eager call {runs[1][0]:.4f} / {runs[2][0]:.4f} ms, device "
+          f"{runs[1][1]:.4f} / {runs[2][1]:.4f} ms (graph replay), plain {runs[0]:.4f} / {runs[3]:.4f} ms; "
+          f"bound {b_ms:.5f} ms ({b_by}: {ops:.3e} ops, {moved:.3e} bytes), share of bound "
+          f"{b_ms / ms:.3f} (eager) / {b_ms / device:.3f} (device)")
+    per = {k: round(v, 3) for k, v in profile_launches(kernel).items()}
+    print(f"  device us per launch by kernel (torch.profiler, 20 eager calls): {per}")
+    return dict(ms=ms, device_ms=device, plain_ms=min(runs[0], runs[3]), bound_ms=b_ms, bound_by=b_by)
+
+
 def check_kernel(device):
     """K1 against its plain version at every shape; returns max |diff|."""
     from perception_tpu_torch.ops.kernels.ransac_score import ransac_score, ransac_score_reference
@@ -134,14 +228,12 @@ def time_kernel(device):
     times = {}
     for b in (1, 8):
         pts, mask, hyp = kernel_inputs(b, 8192, 1024, False, device, seed=1)
-        # In turns (plain, kernel, kernel, plain); each side keeps its best.
-        plain = cuda_ms(lambda: ransac_score_reference(pts, mask, hyp, TAU), 20)
-        kern = cuda_ms(lambda: ransac_score(pts, mask, hyp, TAU), 200)
-        kern2 = cuda_ms(lambda: ransac_score(pts, mask, hyp, TAU), 200)
-        plain2 = cuda_ms(lambda: ransac_score_reference(pts, mask, hyp, TAU), 20)
-        times[b] = (min(kern, kern2), min(plain, plain2))
-        print(f"time K1 ransac_score (B={b}, N=8192, K=1024): kernel {kern * 1e3:.1f} / "
-              f"{kern2 * 1e3:.1f} us, plain {plain * 1e3:.1f} / {plain2 * 1e3:.1f} us")
+        # 3 multiplies, 3 adds, the compare with tau, the mask and the count a pair.
+        times[b] = timed(f"K1 ransac_score (B={b}, N=8192, K=1024)",
+                         lambda: ransac_score(pts, mask, hyp, TAU),
+                         lambda: ransac_score_reference(pts, mask, hyp, TAU),
+                         lambda: (9 * b * 8192 * 1024, nbytes(pts, mask, hyp) + 4 * b * 1024),
+                         plain_iters=20)
     return times
 
 
@@ -184,19 +276,27 @@ def k2_inputs(r, n, m, all_masked, device, seed=0):
 
 
 def time_k2(device):
-    """K2 and its plain version at odometry's shapes, in ms (plain, kernel, kernel, plain)."""
-    from perception_tpu_torch.ops.kernels.icp_gn import gn_system_packed, gn_system_reference
+    """K2 and its plain version at odometry's shapes (plain, kernel, kernel, plain), with its
+    launch plan (at least 2 blocks per SM) and bound."""
+    from perception_tpu_torch.ops.kernels.build import sm_count
+    from perception_tpu_torch.ops.kernels.icp_gn import gn_system_packed, gn_system_reference, launch_plan
 
     times = {}
     for r, n, m, _ in K2_SHAPES[:3]:
         args = k2_inputs(r, n, m, False, device, seed=1)
-        runs = [cuda_ms(lambda: gn_system_reference(*args, 0.25, 0.02), 10),
-                cuda_ms(lambda: gn_system_packed(*args, 0.25, 0.02, return_stats=True), 100),
-                cuda_ms(lambda: gn_system_packed(*args, 0.25, 0.02, return_stats=True), 100),
-                cuda_ms(lambda: gn_system_reference(*args, 0.25, 0.02), 10)]
-        times[(n, m)] = (min(runs[1:3]), min(runs[0], runs[3]))
-        print(f"time K2 icp_gn (R={r}, N={n}, M={m}): kernel {runs[1]:.4f} / {runs[2]:.4f} ms, "
-              f"plain {runs[0]:.4f} / {runs[3]:.4f} ms")
+        src8, tgtd = args[0], args[1]
+        R, Np, Mp = src8.shape[0], src8.shape[1], tgtd.shape[0]
+        plan = launch_plan(R, Np, Mp, sm_count(device.index))
+        print(f"K2 launch plan at R={R} Np={Np} Mp={Mp}: {plan}")
+        require(plan.blocks >= 2 * sm_count(device.index), f"K2 launches under 2 blocks per SM at {(n, m)}")
+        # 10 operations a (source, target) pair (3 multiplies and 3 adds for
+        # p.t - |t|^2/2, the doubling, the subtraction, the compare, the
+        # select) and about 130 a source point (transform, residual, weight,
+        # the 44 products of w Jhat^T Jhat, the sums).
+        times[(n, m)] = timed(f"K2 icp_gn (R={r}, N={n}, M={m})",
+                              lambda: gn_system_packed(*args, 0.25, 0.02, return_stats=True),
+                              lambda: gn_system_reference(*args, 0.25, 0.02),
+                              lambda: (R * Np * (10 * Mp + 130), nbytes(*args) + 4 * R * 66))
     return times
 
 
@@ -256,18 +356,35 @@ def check_k3(device):
 
 
 def time_k3(device):
-    from perception_tpu_torch.ops.kernels.voxelhash_query import voxelhash_query, voxelhash_query_reference
+    """K3+K4 and its plain version at the hash's shapes (plain, kernel, kernel, plain), with
+    its launch plan (at least 2 blocks per SM) and bound."""
+    from perception_tpu_torch.ops.kernels.build import sm_count
+    from perception_tpu_torch.ops.kernels.voxelhash_query import (
+        launch_plan,
+        voxelhash_query,
+        voxelhash_query_reference,
+    )
 
     times = {}
     for m, nq in ((32768, 2048), (65536, 4096)):
         args, _ = k3_case(m, nq, "sorted", False, device, seed=1)
-        runs = [cuda_ms(lambda: voxelhash_query_reference(*args), 10),
-                cuda_ms(lambda: voxelhash_query(*args), 100),
-                cuda_ms(lambda: voxelhash_query(*args), 100),
-                cuda_ms(lambda: voxelhash_query_reference(*args), 10)]
-        times[(m, nq)] = (min(runs[1:3]), min(runs[0], runs[3]))
-        print(f"time K3+K4 voxelhash_query (map {m}, {nq} sorted queries): kernel {runs[1]:.4f} / "
-              f"{runs[2]:.4f} ms, plain {runs[0]:.4f} / {runs[3]:.4f} ms")
+        table, queries, start, nchunk, tile, R, rblk = args
+        plan = launch_plan(queries.shape[0], tile, R, rblk, sm_count(device.index))
+        print(f"K3+K4 launch plan at {queries.shape[0]} queries, tile {tile}, R {R}, rblk {rblk}: {plan}")
+        require(plan.blocks >= 2 * sm_count(device.index), f"K3+K4 launches under 2 blocks per SM at {(m, nq)}")
+        live = {}
+
+        def work():
+            # Read after the timing window from the timed call's chunk counts:
+            # the rows each tile's range holds, 9 operations a (query, row)
+            # pair (3 subtracts, 3 multiplies, 2 adds, the compare).
+            rows = torch.minimum(torch.clamp(nchunk.long() * rblk, max=R), table.shape[0] - start.long())
+            live.update(pairs=int(rows.sum()) * tile, pieces=int(torch.ceil(rows / plan.piece_rows).sum()))
+            return 9 * live["pairs"], nbytes(table, queries, start, nchunk) + 8 * queries.shape[0]
+
+        times[(m, nq)] = timed(f"K3+K4 voxelhash_query (map {m}, {nq} sorted queries)",
+                               lambda: voxelhash_query(*args), lambda: voxelhash_query_reference(*args), work)
+        print(f"  K3+K4 work: {live['pairs']} pairs, live pieces {live['pieces']} of {plan.blocks} blocks")
     return times
 
 
@@ -667,6 +784,40 @@ def check_host_syncs(name, cfg, steps):
         require(not by_file, f"{name}: host syncs at {dict(by_file)}")
 
 
+def slam_profile(camera, depths, grays, cfg, frames=PROFILE_FRAMES):
+    """torch.profiler over slam_step on the first ``frames`` frames: the
+    device busy share (device time of all kernels, copies and sets over
+    the wall time, which the profiler inflates) and ms of device time per
+    step of K2's and K3+K4's kernels."""
+    from torch.autograd import DeviceType
+    from torch.profiler import ProfilerActivity, profile
+
+    from perception_tpu_torch.models.slam import system
+
+    state = system.slam_init(camera, depths[0], grays[0], cfg)
+    gen = torch.Generator(device=depths.device).manual_seed(0)
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+        t0 = time.perf_counter()
+        for i in range(1, frames):
+            state, _ = system.slam_step(state, depths[i], grays[i], camera, gen, cfg)
+        torch.cuda.synchronize()
+        wall_us = (time.perf_counter() - t0) * 1e6
+    busy_us, ops, ours = 0.0, 0, {"icp_gn": 0.0, "voxelhash_query": 0.0}
+    for e in prof.events():
+        if e.device_type != DeviceType.CUDA:
+            continue
+        us = e.time_range.end - e.time_range.start
+        busy_us += us
+        ops += 1
+        for key, mark in (("icp_gn", "icp_gn_"), ("voxelhash_query", "voxelhash_")):
+            if mark in e.name:
+                ours[key] += us
+    steps = frames - 1
+    return {"busy": busy_us / wall_us, "device_ops": ops, "wall_ms_per_step": wall_us / 1e3 / steps,
+            **{f"{k}_ms_per_step": v / 1e3 / steps for k, v in ours.items()}}
+
+
 def run_slam_paths(device, scene):
     """Drive the keyframe SLAM system (run_slam) at 640x480 over the
     300-frame sweep under the three configurations and check each; returns
@@ -743,6 +894,14 @@ def run_slam_paths(device, scene):
 
         check_host_syncs(name, cfg, host_syncs(camera, depths, grays, cfg, SLAM_CPU_FRAMES))
 
+        if name != "slam keyframe no-BA K2":
+            prof = slam_profile(camera, depths, grays, cfg)
+            busy = f"{prof['busy']:.4f}" if prof["device_ops"] else "not measured (no device events)"
+            print(f"{name} profile, {PROFILE_FRAMES - 1} steps (torch.profiler): device busy share {busy}, "
+                  f"{prof['device_ops']} device ops, wall {prof['wall_ms_per_step']:.2f} ms a step, "
+                  f"K2 {prof['icp_gn_ms_per_step']:.4f} ms and K3+K4 "
+                  f"{prof['voxelhash_query_ms_per_step']:.4f} ms of device time a step")
+
         rates, ms, promoted = [], [], []
         for _ in range(SLAM_PASSES):
             fps, frame_ms, prom = slam_pass(camera, depths, grays, cfg)
@@ -754,6 +913,15 @@ def run_slam_paths(device, scene):
               f"median ms tracking frame {np.median(ms[~promoted]):.2f}, promotion frame "
               f"{np.median(ms[promoted]):.2f} ({int(promoted.sum()) // SLAM_PASSES} promotions a pass)")
     return launches
+
+
+def json_times(t):
+    """A kernel's times for the JSON line: ``ms`` the eager wrapper call,
+    ``device_ms`` its device time by graph replay. No single PyTorch call
+    computes any of the three functions (a range scan or a fused NN +
+    system), so there is no library time."""
+    return {"ms": t["ms"], "device_ms": t["device_ms"], "plain_ms": t["plain_ms"],
+            "bound_ms": t["bound_ms"], "bound_by": t["bound_by"], "library_ms": None}
 
 
 def main() -> int:
@@ -812,8 +980,7 @@ def main() -> int:
             "replaces": "perception_tpu/ops/pallas/ransac_score.py:60",
             "launches": cuboid_launches,
             "max_abs_err": k1_err,
-            "ms": k1_times[1][0],
-            "plain_ms": k1_times[1][1],
+            **json_times(k1_times[1]),
         },
         {
             "name": "icp_gn",
@@ -822,8 +989,7 @@ def main() -> int:
             "replaces": "perception_tpu/ops/pallas/icp_gn.py:223",
             "launches": odo_launches["icp_gn"] + slam_launches["icp_gn"],
             "max_abs_err": k2_err,
-            "ms": k2_times[(4096, 8192)][0],
-            "plain_ms": k2_times[(4096, 8192)][1],
+            **json_times(k2_times[(4096, 8192)]),
         },
         {
             "name": "voxelhash_query",
@@ -832,8 +998,7 @@ def main() -> int:
             "replaces": "perception_tpu/ops/voxelhash.py:285 (K3), perception_tpu/ops/voxelhash.py:201 (K4)",
             "launches": odo_launches["voxelhash_query"] + slam_launches["voxelhash_query"],
             "max_abs_err": k3_err,
-            "ms": k3_times[(32768, 2048)][0],
-            "plain_ms": k3_times[(32768, 2048)][1],
+            **json_times(k3_times[(32768, 2048)]),
         },
     ]}))
     print(json.dumps({"ok": True, "device": {

@@ -8,7 +8,8 @@ of the JAX side's values). Odometry's state is an ``OdometryState``:
 keyframe SLAM system's state is a ``SlamState``: ``slam_state_from_jax``
 takes one the same way, and views the BRIEF descriptors (``uint32`` in
 JAX) as the port's ``int32`` words. So both packages compute on the same
-state.
+state. Each puts the state on the card unless the caller passes
+``device="cpu"``.
 """
 
 from __future__ import annotations
@@ -39,7 +40,7 @@ class CuboidState(NamedTuple):
 
 def state_from_jax(
     camera_K, width: int, height: int, template, template_normals, template_mask,
-    device="cpu",
+    device="cuda",
 ) -> CuboidState:
     """Intrinsics (3x3 or flat 9) + image size + template arrays -> CuboidState."""
     return CuboidState(
@@ -54,7 +55,7 @@ def _leaf(x, device) -> torch.Tensor:
     return torch.from_numpy(np.array(x)).to(device)  # keeps float32 / int32 / bool
 
 
-def odometry_state_from_jax(state, device="cpu") -> OdometryState:
+def odometry_state_from_jax(state, device="cuda") -> OdometryState:
     """A JAX ``OdometryState`` whose leaves are numpy arrays (``np.asarray``
     of each, the ``VoxelHash`` included) -> the port's state on ``device``.
     The JAX hash's transposed ``tableT`` has no counterpart and is dropped."""
@@ -65,7 +66,7 @@ def odometry_state_from_jax(state, device="cpu") -> OdometryState:
     return OdometryState(**fields)
 
 
-def slam_state_from_jax(state, device="cpu") -> SlamState:
+def slam_state_from_jax(state, device="cuda") -> SlamState:
     """A JAX ``SlamState`` whose leaves are numpy arrays
     (``jax.tree.map(np.asarray, state)``) -> the port's state on ``device``."""
     kf = state.keyframes

@@ -148,7 +148,7 @@ def segment_ground_plane(
 
 
 def template_features(
-    template, template_mask, config: CuboidConfig = CuboidConfig(), device="cpu"
+    template, template_mask, config: CuboidConfig = CuboidConfig(), device="cuda"
 ):
     """Preprocess a template once per session, in numpy: downsample to the
     pipeline's voxel size, compact to ``template_capacity``, and estimate

@@ -18,6 +18,8 @@ import shutil
 import subprocess
 from pathlib import Path
 
+import torch
+
 CSRC = Path(__file__).resolve().parents[2] / "csrc"
 BUILD_DIR = Path(__file__).resolve().parents[3] / "build" / "perception_tpu_torch"
 NVCC_FLAGS = (
@@ -70,3 +72,9 @@ def build(name: str) -> Path:
 def load_library(name: str) -> ctypes.CDLL:
     """Build (if needed) and load ``csrc/<name>.cu``; loaded once per process."""
     return ctypes.CDLL(str(build(name)))
+
+
+@functools.lru_cache(maxsize=None)
+def sm_count(device_index: int) -> int:
+    """The SM count of CUDA card ``device_index``, for the kernels' launch plans."""
+    return torch.cuda.get_device_properties(device_index).multi_processor_count

@@ -11,32 +11,62 @@ gated, Huber-weighted point-to-plane residual ``r = n.(p - q)``:
 so ``M[:6, :6]`` is the normal matrix, ``M[:6, 6]`` the gradient and
 ``M[7, 7]`` the total weight. Operands are packed once per solve
 (``pack_source``, ``pack_target``); each iteration passes only the pose,
-and the 16 scalars the kernel reads are built on the device, so a
-Gauss-Newton loop never reads a pose back to the host.
+which the kernel reads on the device, so a Gauss-Newton loop never
+reads a pose back to the host.
 
 ``gn_system_packed`` launches ``csrc/icp_gn.cu`` for CUDA tensors and
 takes ``gn_system_reference`` only for CPU tensors. Both round the
 transform and distance arithmetic operation by operation in the same
 order, so they find the same neighbours; M and the stats differ by the
-order of their float sums.
+order of their float sums. The kernel's nearest-neighbour phase splits
+the target axis over blocks; ``launch_plan`` fixes the split from the
+shapes and the card's SM count alone, never from device data.
 """
 
 from __future__ import annotations
 
 import ctypes
 import functools
+from typing import NamedTuple
 
 import torch
 
 from perception_tpu_torch._tensor import const
 from perception_tpu_torch.ops import nn as _nn
 from perception_tpu_torch.ops.icp import _huber_weight
-from perception_tpu_torch.ops.kernels.build import load_library
+from perception_tpu_torch.ops.kernels.build import load_library, sm_count
 from perception_tpu_torch.ops.points import SENTINEL
 
 # Bounds the plain version's (R, N, chunk) distance temporaries; the
 # running strict '<' makes the chunking invisible in the result.
 _REF_ELEMS = 1 << 22
+
+# The kernel's geometry (csrc/icp_gn.cu; checked against the library at load).
+SYSTEM_THREADS = 256  # system phase: source points per block
+NN_SRC_TILE = 256     # NN phase: source points per block (64 threads x 4 points)
+NN_CHUNK = 64         # NN phase: target rows per shared-memory stage
+BLOCKS_PER_SM = 16    # NN blocks the plan aims for on each SM (PERF.md, PR 4 findings)
+
+
+class LaunchPlan(NamedTuple):
+    """The NN phase's grid: ``src_tiles`` x ``splits`` x R blocks; split s
+    scans target rows ``[s * split_rows, min((s + 1) * split_rows, Mp))``."""
+    src_tiles: int
+    splits: int
+    split_rows: int
+    blocks: int
+
+
+def launch_plan(R: int, Np: int, Mp: int, sms: int) -> LaunchPlan:
+    """Split the target axis so that the NN phase launches about
+    ``BLOCKS_PER_SM * sms`` blocks, each split a whole number of stage
+    chunks, the splits ascending and covering ``[0, Mp)`` once."""
+    src_tiles = -(-Np // NN_SRC_TILE)
+    chunks = -(-Mp // NN_CHUNK)
+    want = -(-BLOCKS_PER_SM * sms // max(src_tiles * R, 1))
+    per_split = max(1, chunks // want)
+    splits = -(-chunks // per_split)
+    return LaunchPlan(src_tiles, splits, per_split * NN_CHUNK, src_tiles * splits * R)
 
 
 def pack_source(src: torch.Tensor, src_mask: torch.Tensor, block: int = 512) -> torch.Tensor:
@@ -124,11 +154,15 @@ def gn_system_reference(src8, tgtd, tn, Ts, max_correspondence_distance, huber_d
 @functools.lru_cache(maxsize=None)
 def _launcher():
     lib = load_library("icp_gn")
+    geometry = (ctypes.c_int * 3)()
+    lib.icp_gn_geometry(geometry)
+    if tuple(geometry) != (SYSTEM_THREADS, NN_SRC_TILE, NN_CHUNK):
+        raise RuntimeError(f"csrc/icp_gn.cu's geometry {tuple(geometry)} differs from the wrapper's")
     fn = lib.icp_gn_launch
-    fn.argtypes = [ctypes.c_void_p] * 4 + [ctypes.c_int] * 3 + [ctypes.c_void_p] * 4
+    fn.argtypes = ([ctypes.c_void_p] * 4 + [ctypes.c_float] * 2 + [ctypes.c_int] * 5
+                   + [ctypes.c_void_p] * 5)
     fn.restype = ctypes.c_int
-    lib.icp_gn_threads_per_block.restype = ctypes.c_int
-    return fn, lib.icp_gn_threads_per_block()
+    return fn
 
 
 def _check(src8, tgtd, tn, Ts):
@@ -145,7 +179,7 @@ def _check(src8, tgtd, tn, Ts):
             raise TypeError(f"{name} must be float32, got {t.dtype}")
         if t.device != src8.device:
             raise ValueError(f"{name} is on {t.device}, src8 on {src8.device}")
-        if name != "Ts" and not t.is_contiguous():  # Ts only feeds _scalars
+        if name != "Ts" and not t.is_contiguous():  # the wrapper makes Ts contiguous
             raise ValueError(f"{name} must be contiguous")
     if tgtd.data_ptr() % 16:
         raise ValueError("tgtd must be 16-byte aligned (the kernel reads float4 rows)")
@@ -170,13 +204,18 @@ def gn_system_packed(src8, tgtd, tn, Ts, max_correspondence_distance: float,
         M, stats = src8.new_zeros((R, 8, 8)), src8.new_zeros((R, 2))
     else:  # the kernels write every entry
         M, stats = torch.empty((R, 8, 8), device=src8.device), torch.empty((R, 2), device=src8.device)
-        launch, threads = _launcher()
-        scalars = _scalars(Ts, max_correspondence_distance, huber_delta)
-        partials = torch.empty((R, -(-Np // threads), 38), dtype=torch.float32, device=src8.device)
+        launch = _launcher()
+        Mp = tgtd.shape[0]
+        plan = launch_plan(R, Np, Mp, sm_count(src8.device.index))
+        Ts = Ts.contiguous()
+        nn = torch.empty((R, plan.splits, Np, 2), dtype=torch.int32, device=src8.device)
+        partials = torch.empty((R, -(-Np // SYSTEM_THREADS), 38), dtype=torch.float32,
+                               device=src8.device)
         with torch.cuda.device(src8.device):
             stream = torch.cuda.current_stream(src8.device).cuda_stream
-            err = launch(src8.data_ptr(), tgtd.data_ptr(), tn.data_ptr(), scalars.data_ptr(),
-                         R, Np, tgtd.shape[0], partials.data_ptr(), M.data_ptr(),
+            err = launch(src8.data_ptr(), tgtd.data_ptr(), tn.data_ptr(), Ts.data_ptr(),
+                         max_correspondence_distance**2, huber_delta, R, Np, Mp, plan.splits,
+                         plan.split_rows, nn.data_ptr(), partials.data_ptr(), M.data_ptr(),
                          stats.data_ptr(), stream)
         if err:
             raise RuntimeError(f"icp_gn kernel launch failed: CUDA error {err}")

@@ -59,7 +59,7 @@ def case():
     jcam = JCamera.d435_depth()
     tnp = scene.benchmark_template()
     jt, jn, jm = jcuboid.template_features(tnp, np.ones(len(tnp), bool), CFG)
-    state = state_from_jax(np.asarray(jcam.K), jcam.width, jcam.height, jt, jn, jm)
+    state = state_from_jax(np.asarray(jcam.K), jcam.width, jcam.height, jt, jn, jm, device="cpu")
     depths, gts = scene.bench_frames(state.camera, SEEDS)
     jres, idx = [], []
     for i, depth in enumerate(depths):
@@ -120,7 +120,7 @@ def test_pipeline_with_own_generator_finds_the_cuboid(case):
 
 def _template():
     tnp = scene.benchmark_template()
-    return template_features(tnp, np.ones(len(tnp), bool), CFG)
+    return template_features(tnp, np.ones(len(tnp), bool), CFG, device="cpu")
 
 
 def test_empty_scene_is_rejected():

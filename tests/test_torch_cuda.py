@@ -14,6 +14,10 @@ atomics, so a voxel centroid may move by an ulp and one point may cross
 the RANSAC threshold. The fused GN system (K2): equal gate counts, M and
 the gated d2 sum within rtol/atol 1e-4 (float sums in another order). The
 voxel-hash query (K3+K4): bit-identical (both round each operation).
+Both kernels split their scan over blocks (K2 the target axis, K3+K4 each
+tile's window); the tests place equal minima in different splits or
+pieces, where the lower index must win, tie -0.0 with +0.0, and repeat
+launches 20 times for identical outputs.
 Odometry on the card against the CPU: poses within 1 mm over 5 frames.
 The SLAM front end on the card against the CPU: FAST keypoints, scores
 and masks equal, angles within 1e-4, BRIEF descriptors within 2 differing
@@ -144,6 +148,114 @@ def test_cuda_icp_gn_rejects_what_it_cannot_take(cuda_device):
         icp_gn.gn_system_packed(src8, tgtd[:, :4].contiguous(), tn, Ts, 0.25, 0.02)
     with pytest.raises(ValueError):
         icp_gn.gn_system_packed(src8, tgtd.cpu(), tn, Ts, 0.25, 0.02)
+
+
+def test_cuda_icp_gn_ties_across_splits_keep_the_lower_index(cuda_device):
+    """Sources sitting exactly on targets that have an exact copy (with
+    another normal) in a later split, and a source at the origin between
+    targets at (-0, 0, 0) and (0, -0, 0): the lower index must win, as in
+    the plain version, or M takes the other normal."""
+    r, n, m = 1, 512, 4096
+    plan = icp_gn.launch_plan(r, n, m, icp_gn.sm_count(cuda_device.index or 0))
+    first = np.arange(64) * 3                                   # the first splits
+    copy = (plan.splits - 1) * plan.split_rows + np.arange(64)  # the last split
+    assert copy[0] // plan.split_rows > first[-1] // plan.split_rows and 2000 // plan.split_rows > 0
+    rng = np.random.RandomState(5)
+    tgt = (rng.randn(m, 3) * 0.3).astype(np.float32)
+    nrm = rng.randn(m, 3).astype(np.float32)
+    nrm /= np.linalg.norm(nrm, axis=1, keepdims=True)
+    src = (rng.randn(r, n, 3) * 0.3).astype(np.float32)
+    tgt[copy] = tgt[first]
+    src[0, :64] = tgt[first]
+    tgt[5], tgt[2000] = (-0.0, 0.0, 0.0), (0.0, -0.0, 0.0)  # splits 0 and 2000 // split_rows
+    src[0, 64] = 0.0
+    tgtd, tn = icp_gn.pack_target(torch.from_numpy(tgt), torch.from_numpy(nrm), torch.ones(m, dtype=torch.bool))
+    src8 = icp_gn.pack_source(torch.from_numpy(src), torch.ones((r, n), dtype=torch.bool))
+    Ts = torch.eye(4).expand(r, 4, 4).contiguous()
+    args = tuple(t.to(cuda_device) for t in (src8, tgtd, tn, Ts))
+    M, st = icp_gn.gn_system_packed(*args, 0.25, 0.02, return_stats=True)
+    Mr, sr = icp_gn.gn_system_reference(*args, 0.25, 0.02)
+    assert torch.equal(st[:, 0], sr[:, 0])
+    assert torch.allclose(M, Mr, rtol=1e-4, atol=1e-4)
+    # The copies' normals differ, so taking them would move M by far more.
+    nrm_w = nrm.copy()
+    nrm_w[first], nrm_w[5] = nrm[copy], nrm[2000]
+    _, tn_w = icp_gn.pack_target(torch.from_numpy(tgt), torch.from_numpy(nrm_w), torch.ones(m, dtype=torch.bool))
+    Mw, _ = icp_gn.gn_system_reference(args[0], args[1], tn_w.to(cuda_device), args[3], 0.25, 0.02)
+    assert float((Mw - Mr).abs().max()) > 1e-2
+
+
+@pytest.mark.parametrize("r,n,m", [(4, 1024, 1280), (2, 4096, 8192)])
+def test_cuda_icp_gn_restarts_and_repeats(cuda_device, r, n, m):
+    """R > 1 (the cuboid ICP's 4 restarts among them), and 20 launches
+    give identical outputs."""
+    args = gn_case(7, r, n, m, cuda_device)
+    M, st = icp_gn.gn_system_packed(*args, 0.25, 0.02, return_stats=True)
+    Mr, sr = icp_gn.gn_system_reference(*args, 0.25, 0.02)
+    assert torch.equal(st[:, 0], sr[:, 0]) and bool((sr[:, 0] > 0).all())
+    assert torch.allclose(M, Mr, rtol=1e-4, atol=1e-4)
+    for _ in range(20):
+        M2, st2 = icp_gn.gn_system_packed(*args, 0.25, 0.02, return_stats=True)
+        assert torch.equal(M2, M) and torch.equal(st2, st)
+
+
+def direct_query_case(device):
+    """A 4096-row table and 256 queries in two tiles of 128, with the
+    window cut into pieces: tile 0's queries sit on rows of piece 0 that
+    have exact copies in a later piece; query 100 at the origin between
+    rows (-0, 0, 0) and (0, -0, 0); tile 1's chunk count passes R // rblk
+    (the window caps it)."""
+    rng = np.random.RandomState(11)
+    npad, tile, R, rblk = 4096, 128, 2048, 512
+    table = np.zeros((npad, 8), np.float32)
+    table[:, :3] = rng.uniform(-1, 1, (npad, 3))
+    table[:, 3] = 1.0
+    q = rng.uniform(-1, 1, (2 * tile, 3)).astype(np.float32)
+    first, copy = np.arange(100), 1300 + np.arange(100)
+    table[copy, :3] = table[first, :3]
+    q[:100] = table[first, :3]
+    table[200, :3], table[1500, :3] = (-0.0, 0.0, 0.0), (0.0, -0.0, 0.0)
+    q[100] = 0.0
+    start = torch.tensor([0, 1024], dtype=torch.int32)
+    nchunk = torch.tensor([4, 5], dtype=torch.int32)
+    return (torch.from_numpy(table).to(device), torch.from_numpy(q).to(device), start.to(device),
+            nchunk.to(device), tile, R, rblk)
+
+
+def test_cuda_voxelhash_query_ties_across_pieces_keep_the_lower_index(cuda_device):
+    args = direct_query_case(cuda_device)
+    plan = voxelhash_query_launch_plan(args, cuda_device)
+    assert 1300 // plan.piece_rows > 99 // plan.piece_rows and 1500 // plan.piece_rows > 200 // plan.piece_rows
+    idx, d2 = voxelhash_query(*args)
+    ridx, rd2 = voxelhash_query_reference(*args)
+    assert torch.equal(idx, ridx) and torch.equal(d2, rd2)
+    assert idx[:100].tolist() == list(range(100)) and int(idx[100]) == 200
+
+
+def voxelhash_query_launch_plan(args, device):
+    from perception_tpu_torch.ops.kernels import voxelhash_query as vq
+
+    table, q, start, nchunk, tile, R, rblk = args
+    return vq.launch_plan(q.shape[0], tile, R, rblk, vq.sm_count(device.index or 0))
+
+
+@pytest.mark.parametrize("m,all_masked", [(32768, False), (32768, True)])
+def test_cuda_voxelhash_query_masked_and_repeats(cuda_device, m, all_masked):
+    """An all-masked map (every row at the sentinel), and 20 launches give
+    identical outputs."""
+    rng = np.random.RandomState(3)
+    ref = torch.from_numpy(rng.uniform(-1, 1, (m, 3)).astype(np.float32)).to(cuda_device)
+    q = ref[torch.from_numpy(rng.randint(0, m, 2048)).to(cuda_device)]
+    vh = voxelhash.build(ref, torch.full((m,), not all_masked, device=cuda_device), 0.06)
+    q, _ = voxelhash.sort_by_cell(vh, q)
+    args, _ = voxelhash.kernel_args(vh, q)
+    idx, d2 = voxelhash_query(*args)
+    ridx, rd2 = voxelhash_query_reference(*args)
+    assert torch.equal(idx, ridx) and torch.equal(d2, rd2)
+    assert all_masked == bool((rd2 > 1e11).all())
+    for _ in range(20):
+        idx2, d22 = voxelhash_query(*args)
+        assert torch.equal(idx2, idx) and torch.equal(d22, d2)
 
 
 @pytest.mark.parametrize("m,nq,order", [(32768, 2048, "sorted"), (65536, 4096, "sorted"), (32768, 1000, "caller")])

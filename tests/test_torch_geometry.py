@@ -129,7 +129,7 @@ def test_template_features_equal():
     np.testing.assert_array_equal(tnp, jscene.benchmark_template())
     mask = np.ones(len(tnp), bool)
     mask[::7] = False
-    got = cuboid.template_features(tnp, mask)
+    got = cuboid.template_features(tnp, mask, device="cpu")
     want = jcuboid.template_features(tnp, mask)
     for g, w in zip(got, want):
         np.testing.assert_array_equal(g.numpy(), np.asarray(w))
@@ -140,7 +140,7 @@ def test_state_from_jax_carries_camera_and_template():
     tnp = jscene.benchmark_template()
     jt, jn, jm = jcuboid.template_features(tnp, np.ones(len(tnp), bool))
     st = state_from_jax(np.asarray(jcam.K), jcam.width, jcam.height,
-                        np.asarray(jt), np.asarray(jn), np.asarray(jm))
+                        np.asarray(jt), np.asarray(jn), np.asarray(jm), device="cpu")
     assert st.camera == PinholeCamera.d435_depth()
     np.testing.assert_array_equal(st.template.numpy(), np.asarray(jt))
     np.testing.assert_array_equal(st.template_normals.numpy(), np.asarray(jn))

@@ -43,7 +43,7 @@ def test_one_step_from_the_converted_jax_state(scene, engine):
     for d in depths[1:4]:
         jstate, _ = jodo.odometry_step(jstate, jnp.asarray(d), jcam, jcfg)
     assert int(jstate.num_keyframes) == 2
-    state = odometry_state_from_jax(jax.tree_util.tree_map(np.asarray, jstate))
+    state = odometry_state_from_jax(jax.tree_util.tree_map(np.asarray, jstate), device="cpu")
     assert state.frame_index.dtype == torch.int32 and state.kf_mask.dtype == torch.bool
     np.testing.assert_array_equal(state.map_hash.cell_ids.numpy(), np.asarray(jstate.map_hash.cell_ids))
 

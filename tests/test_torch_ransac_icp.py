@@ -138,7 +138,7 @@ def icp_case(seed):
     """Target: the bench template with its normals; sources: 4 yaw
     restarts of a perturbed, partly masked view of it."""
     tnp = scene.benchmark_template()
-    t, tn, tm = (a.numpy() for a in cuboid.template_features(tnp, np.ones(len(tnp), bool)))
+    t, tn, tm = (a.numpy() for a in cuboid.template_features(tnp, np.ones(len(tnp), bool), device="cpu"))
     rng = np.random.RandomState(seed)
     n = int(tm.sum())
     T_gt = se3.se3_exp(torch.tensor([0.01, -0.005, 0.004, 0.02, -0.03, 0.15])).numpy()

@@ -137,7 +137,7 @@ def test_converted_jax_state_steps_like_jax(scene, jax_run, draws, k):
     _, camera, _, grays, depths = scene
     keys, states, diags = jax_run
     assert bool(diags[k].promoted) and int(diags[k].loop_candidate) >= 0 and bool(diags[k].ba_ran)
-    state = convert.slam_state_from_jax(states[k])
+    state = convert.slam_state_from_jax(states[k], device="cpu")
     assert state.keyframes.desc.dtype == torch.int32
     np.testing.assert_array_equal(state.keyframes.desc.numpy().view(np.uint32), states[k].keyframes.desc)
     draws.key = keys[k]
