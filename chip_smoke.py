@@ -3,11 +3,12 @@
 Builds the port's three kernels from ``perception_tpu_torch/csrc`` (one
 ``nvcc`` per source, all started together) and holds each against its
 plain PyTorch version at the shapes its path gives it: K1, fused RANSAC
-scoring, bit-exact; K2, the fused Gauss-Newton ICP system, with equal
+scoring, bit-exact (N=8192 for the cuboid, 32768 for the detection
+service, 24576 for the tracker); K2, the fused Gauss-Newton ICP system, with equal
 gate counts and M within rtol/atol 1e-4; K3+K4, the voxel-hash query,
 bit-exact below and above 49152 table rows. Then drives the port's
-three paths through their entry points, each with the kernels' launch
-counts set to 0 just before it and read just after:
+paths through their entry points, each with the kernels' launch counts
+set to 0 just before it and read just after:
 
 - the cuboid pipeline at 640x480 on the 8 bench frames, through
   ``cuboid_pipeline_from_depth`` (one frame at a time) and
@@ -26,7 +27,22 @@ counts set to 0 just before it and read just after:
   first 12 frames (same RANSAC triplets); ``slam_step``'s host syncs,
   from torch's sync debug mode, held to the reads it states; a
   stage-timed pass (odometry, features, matching, RANSAC+PnP, BA, pose
-  graph) and timed passes (frames/s, ms per tracking / promotion frame).
+  graph) and timed passes (frames/s, ms per tracking / promotion frame);
+- the cuboid pipeline's other modes on the 8 bench frames at B=8:
+  ``cluster_filter="cc"`` and ``icp_mode="p2p"`` (acceptance, pose against
+  ground truth, the card against the CPU), and ``CuboidConfig.pcl_parity()``
+  on the first frames, timed;
+- the detection service through ``detect_object`` in
+  ``benchmarks/objects_bench.py``'s setting (the 640x480 clutter scene, the
+  four captured class templates and a plate that matches nothing): success
+  and chamfer error per class, the plate rejected, the card against the
+  CPU on the same triplets, the host syncs held to the stated count, ms
+  per call;
+- the streaming tracker through ``track_step_from_depth`` in
+  ``benchmarks/tracking_bench.py``'s setting (300 frames at 640x480, three
+  cuboids): frames/s, median and p90 error, latched and warm shares,
+  gated; the card against the CPU over the first frames; one host read of
+  ``steady`` a frame.
 
 Each kernel is timed at its path's shapes against its plain version, in
 turns (plain, kernel, kernel, plain): the kernel's eager wrapper call by
@@ -49,6 +65,8 @@ Run from the repository root: ``python3 chip_smoke.py``
 
 from __future__ import annotations
 
+import contextlib
+import itertools
 import json
 import statistics
 import subprocess
@@ -63,9 +81,12 @@ FRAMES = 8
 KERNEL_SHAPES = [  # (B, N, K, all points masked)
     (1, 8192, 1024, False),
     (8, 8192, 1024, False),
+    (1, 32768, 1024, False),   # the detection service's working set
+    (1, 24576, 1024, False),   # the tracker's working set
     (1, 777, 100, False),
     (1, 8192, 1024, True),
 ]
+K1_TIMED = ((1, 8192), (8, 8192), (1, 32768), (1, 24576))  # (B, N) at K=1024
 TAU = 0.015
 KERNELS = ("ransac_score", "icp_gn", "voxelhash_query")
 K2_SHAPES = [  # (R, N, M, all source points masked); the first three are odometry's
@@ -87,8 +108,32 @@ ODO_FRAMES = 40
 CPU_FRAMES = 5
 SLAM_FRAMES = 300        # the SLAM bench's sweep_trajectory(n=300)
 SLAM_CPU_FRAMES = 12     # card against CPU: two promotions, each with a BA run
-SLAM_PASSES = 2          # timed passes per SLAM configuration
+SLAM_PASSES = 1          # timed passes per SLAM configuration: one keeps the run well inside its limit
 PROFILE_FRAMES = 30      # slam_step calls under torch.profiler (keyframe+BA K2, map hash)
+OBJ_CLASSES = ("eraser", "screwdriver", "clamp", "marker")
+OBJ_TIMED_CALLS = 3      # timed detect_object calls per class, after a warm-up
+OBJ_CPU_CLASSES = ("eraser", "marker")  # card against CPU: the CPU takes 10-120 s a call
+# The JAX package's answers in this setting (objects_reference.py, on the
+# CPU): (success, winning cluster, size difference, chamfer cm). Its
+# size-based winner takes another class's cluster for the screwdriver,
+# clamp and marker, so only the eraser is found where it lies; the card
+# must give the same answers, chamfer within 0.05 cm of the reference's.
+OBJ_JAX_REFERENCE = {
+    "eraser": (True, 3, 73, 0.094),
+    "screwdriver": (True, 2, 4, 14.986),
+    "clamp": (True, 1, 26, 23.764),
+    "marker": (True, 3, 40, 23.358),
+}
+TRACK_FRAMES = 300       # tracking_bench.py's camera_trajectory(300)
+TRACK_CPU_FRAMES = 6     # tracker on the card against the CPU
+TRACK_SYNC_FRAMES = 4    # tracker steps under torch's sync debug mode
+PARITY_FRAMES = 2        # bench frames through CuboidConfig.pcl_parity()
+# The JAX package's translation errors in mm on the 8 bench frames under
+# CuboidConfig(icp_mode="p2p") (20 iterations), on the CPU with its own
+# triplets; tests/test_torch_objects.py holds the port to them. Point-to-
+# point ICP has not converged in 20 iterations on frames 3 and 5-7, so the
+# p2p gate is 2 cm or, where the reference misses that, its error + 1 mm.
+P2P_JAX_ERROR_MM = (6.40, 7.60, 4.51, 11.68, 5.63, 18.64, 27.48, 19.82)
 PEAK_F32_OPS = 67e12     # H100 SXM, f32 outside the tensor cores (NVIDIA's data sheet)
 PEAK_BYTES = 3.35e12     # H100 SXM HBM3
 
@@ -222,18 +267,19 @@ def check_kernel(device):
 
 
 def time_kernel(device):
-    """K1 and its plain version at the main path's shapes, in ms."""
+    """K1 and its plain version at the paths' shapes (the cuboid at B=1 and
+    B=8, the detection service, the tracker), in ms."""
     from perception_tpu_torch.ops.kernels.ransac_score import ransac_score, ransac_score_reference
 
     times = {}
-    for b in (1, 8):
-        pts, mask, hyp = kernel_inputs(b, 8192, 1024, False, device, seed=1)
+    for b, n in K1_TIMED:
+        pts, mask, hyp = kernel_inputs(b, n, 1024, False, device, seed=1)
         # 3 multiplies, 3 adds, the compare with tau, the mask and the count a pair.
-        times[b] = timed(f"K1 ransac_score (B={b}, N=8192, K=1024)",
-                         lambda: ransac_score(pts, mask, hyp, TAU),
-                         lambda: ransac_score_reference(pts, mask, hyp, TAU),
-                         lambda: (9 * b * 8192 * 1024, nbytes(pts, mask, hyp) + 4 * b * 1024),
-                         plain_iters=20)
+        times[(b, n)] = timed(f"K1 ransac_score (B={b}, N={n}, K=1024)",
+                              lambda: ransac_score(pts, mask, hyp, TAU),
+                              lambda: ransac_score_reference(pts, mask, hyp, TAU),
+                              lambda: (9 * b * n * 1024, nbytes(pts, mask, hyp) + 4 * b * 1024),
+                              plain_iters=20)
     return times
 
 
@@ -671,40 +717,15 @@ def slam_stage_times(camera, depths, grays, cfg):
     over tracking frames and over promotion frames."""
     from perception_tpu_torch.models.slam import system
 
-    acc = {}
-    saved = {}
-
-    def timed(fn, stage):
-        def wrapper(*args, **kwargs):
-            torch.cuda.synchronize()
-            t = time.perf_counter()
-            out = fn(*args, **kwargs)
-            torch.cuda.synchronize()
-            acc[stage] = acc.get(stage, 0.0) + (time.perf_counter() - t) * 1e3
-            return out
-        return wrapper
-
+    stages = {stage: [(system, n) for n in names] for stage, names in STAGES.items()}
     rows = []
 
     def step(*args):
-        acc.clear()
-        t = time.perf_counter()
-        out = system.slam_step(*args)
-        torch.cuda.synchronize()
-        row = dict(acc, step=(time.perf_counter() - t) * 1e3)
-        row["rest"] = row["step"] - sum(v for k, v in row.items() if k != "step")
-        rows.append(row)
-        return out
+        out = []
+        rows.append(stage_ms(lambda: out.append(system.slam_step(*args)), stages))
+        return out[0]
 
-    for stage, names in STAGES.items():
-        for n in names:
-            saved[n] = getattr(system, n)
-            setattr(system, n, timed(saved[n], stage))
-    try:
-        _, _, promoted = slam_pass(camera, depths, grays, cfg, step=step)
-    finally:
-        for n, fn in saved.items():
-            setattr(system, n, fn)
+    _, _, promoted = slam_pass(camera, depths, grays, cfg, step=step)
     keys = list(STAGES) + ["rest", "step"]
     out = {}
     for kind, sel in (("tracking", ~promoted), ("promotion", promoted)):
@@ -716,16 +737,30 @@ def host_syncs(camera, depths, grays, cfg, frames):
     """The host syncs of slam_step over the first frames, from torch's sync
     debug mode: one (kind, Counter of "file:line") per step, kind
     "tracking" or "promotion"."""
-    import collections
-    import traceback
-    import warnings
-
     from perception_tpu_torch.models.slam import system
 
     state = system.slam_init(camera, depths[0], grays[0], cfg)
     gen = torch.Generator(device=depths.device).manual_seed(0)
     torch.cuda.synchronize()
     steps = []
+    for i in range(1, frames):
+        with recorded_syncs() as sites:
+            state, diag = system.slam_step(state, depths[i], grays[i], camera, gen, cfg)
+        steps.append(("promotion" if bool(diag.promoted) else "tracking", sites))
+    return steps
+
+
+@contextlib.contextmanager
+def recorded_syncs():
+    """The host syncs inside the block, from torch's sync debug mode: a
+    Counter of "file:line" (paths under the package relative to it; a sync
+    inside torch's Python code is named with the port's line that got
+    there, "torch/...:n via ops/...:m")."""
+    import collections
+    import traceback
+    import warnings
+
+    sites = collections.Counter()
 
     def record(message, category, filename, lineno, file=None, line=None):
         if "synchroniz" in str(message):
@@ -737,18 +772,14 @@ def host_syncs(camera, depths, grays, cfg, frames):
                     site += f" via {port[-1].filename.split('perception_tpu_torch/')[-1]}:{port[-1].lineno}"
             sites[site] += 1
 
-    for i in range(1, frames):
-        sites = collections.Counter()
-        with warnings.catch_warnings():
-            warnings.simplefilter("always")
-            warnings.showwarning = record
-            torch.cuda.set_sync_debug_mode("warn")
-            try:
-                state, diag = system.slam_step(state, depths[i], grays[i], camera, gen, cfg)
-            finally:
-                torch.cuda.set_sync_debug_mode("default")
-        steps.append(("promotion" if bool(diag.promoted) else "tracking", sites))
-    return steps
+    with warnings.catch_warnings():
+        warnings.simplefilter("always")
+        warnings.showwarning = record
+        torch.cuda.set_sync_debug_mode("warn")
+        try:
+            yield sites
+        finally:
+            torch.cuda.set_sync_debug_mode("default")
 
 
 def check_host_syncs(name, cfg, steps):
@@ -789,33 +820,21 @@ def slam_profile(camera, depths, grays, cfg, frames=PROFILE_FRAMES):
     device busy share (device time of all kernels, copies and sets over
     the wall time, which the profiler inflates) and ms of device time per
     step of K2's and K3+K4's kernels."""
-    from torch.autograd import DeviceType
-    from torch.profiler import ProfilerActivity, profile
-
     from perception_tpu_torch.models.slam import system
 
-    state = system.slam_init(camera, depths[0], grays[0], cfg)
+    state = [system.slam_init(camera, depths[0], grays[0], cfg)]
     gen = torch.Generator(device=depths.device).manual_seed(0)
-    torch.cuda.synchronize()
-    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
-        t0 = time.perf_counter()
-        for i in range(1, frames):
-            state, _ = system.slam_step(state, depths[i], grays[i], camera, gen, cfg)
-        torch.cuda.synchronize()
-        wall_us = (time.perf_counter() - t0) * 1e6
-    busy_us, ops, ours = 0.0, 0, {"icp_gn": 0.0, "voxelhash_query": 0.0}
-    for e in prof.events():
-        if e.device_type != DeviceType.CUDA:
-            continue
-        us = e.time_range.end - e.time_range.start
-        busy_us += us
-        ops += 1
-        for key, mark in (("icp_gn", "icp_gn_"), ("voxelhash_query", "voxelhash_")):
-            if mark in e.name:
-                ours[key] += us
-    steps = frames - 1
-    return {"busy": busy_us / wall_us, "device_ops": ops, "wall_ms_per_step": wall_us / 1e3 / steps,
-            **{f"{k}_ms_per_step": v / 1e3 / steps for k, v in ours.items()}}
+    index = iter(range(1, frames))
+
+    def step():
+        i = next(index)
+        state[0], _ = system.slam_step(state[0], depths[i], grays[i], camera, gen, cfg)
+
+    busy, wall, by_name, ops = device_profile(step, frames - 1)
+    ours = {key: sum(ms for name, ms in by_name.items() if mark in name)
+            for key, mark in (("icp_gn", "icp_gn_"), ("voxelhash_query", "voxelhash_"))}
+    return {"busy": busy, "device_ops": ops, "wall_ms_per_step": wall,
+            **{f"{k}_ms_per_step": v for k, v in ours.items()}}
 
 
 def run_slam_paths(device, scene):
@@ -915,6 +934,435 @@ def run_slam_paths(device, scene):
     return launches
 
 
+def device_profile(fn, calls):
+    """torch.profiler over ``calls`` calls of ``fn``: (busy share = device
+    time of every kernel, copy and set over the wall time, which the
+    profiler inflates; wall ms a call; {device op name: ms a call}; the
+    number of device ops)."""
+    from torch.autograd import DeviceType
+    from torch.profiler import ProfilerActivity, profile
+
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+        t0 = time.perf_counter()
+        for _ in range(calls):
+            fn()
+        torch.cuda.synchronize()
+        wall_us = (time.perf_counter() - t0) * 1e6
+    busy, ops, by_name = 0.0, 0, {}
+    for e in prof.events():
+        if e.device_type == DeviceType.CUDA:
+            us = e.time_range.end - e.time_range.start
+            busy += us
+            ops += 1
+            by_name[e.name] = by_name.get(e.name, 0.0) + us
+    return busy / wall_us, wall_us / 1e3 / calls, {k: v / 1e3 / calls for k, v in by_name.items()}, ops
+
+
+def top_ms(by_name, n=5):
+    """The ``n`` device ops with the most time, names cut to 60 characters."""
+    return {k[:60]: round(v, 4) for k, v in sorted(by_name.items(), key=lambda kv: -kv[1])[:n]}
+
+
+def stage_ms(fn, stages):
+    """One call of ``fn`` with a synchronize around each stage: {label: ms},
+    plus "rest" and "step" (the whole call); ``stages`` maps a label to
+    the (module, function name) pairs of functions the call goes through."""
+    acc, saved = {}, {}
+
+    def timed_stage(real, label):
+        def wrapper(*args, **kwargs):
+            torch.cuda.synchronize()
+            t = time.perf_counter()
+            out = real(*args, **kwargs)
+            torch.cuda.synchronize()
+            acc[label] = acc.get(label, 0.0) + (time.perf_counter() - t) * 1e3
+            return out
+        return wrapper
+
+    for label, functions in stages.items():
+        for module, name in functions:
+            saved[(module, name)] = getattr(module, name)
+            setattr(module, name, timed_stage(saved[(module, name)], label))
+    try:
+        torch.cuda.synchronize()
+        t = time.perf_counter()
+        fn()
+        torch.cuda.synchronize()
+    finally:
+        for (module, name), real in saved.items():
+            setattr(module, name, real)
+    acc["step"] = (time.perf_counter() - t) * 1e3
+    acc["rest"] = acc["step"] - sum(v for k, v in acc.items() if k != "step")
+    return {k: round(v, 2) for k, v in acc.items()}
+
+
+def source_line(module, text):
+    """The line number of the one line of ``module`` holding ``text``."""
+    import inspect
+
+    hits = [i + 1 for i, line in enumerate(inspect.getsourcelines(module)[0]) if text in line]
+    require(len(hits) == 1, f"{module.__name__}: {len(hits)} lines hold {text!r}")
+    return hits[0]
+
+
+@contextlib.contextmanager
+def counted_calls(module, name):
+    """Count the calls of ``module.name`` inside the block: yields a list
+    whose length is the count."""
+    calls, real = [], getattr(module, name)
+
+    def wrapper(*args, **kwargs):
+        calls.append(1)
+        return real(*args, **kwargs)
+
+    setattr(module, name, wrapper)
+    try:
+        yield calls
+    finally:
+        setattr(module, name, real)
+
+
+def require_syncs(label, sites, want):
+    """Hold a Counter of sync sites to ``want`` ("file:line" -> count); a
+    sync in torch/cuda/__init__.py is CUDA's lazy initialisation."""
+    got = {k: v for k, v in sites.items() if not k.startswith("torch/cuda/__init__.py")}
+    print(f"{label} host syncs (torch sync debug mode): {dict(got)}; stated {want}")
+    require(got == {k: v for k, v in want.items() if v}, f"{label}: host syncs {dict(got)}, stated {want}")
+
+
+def chamfer_cm(template, est, gt):
+    """Mean distance in cm from the template under the estimated pose to the
+    template under the true pose (symmetry-safe pose error)."""
+    from scipy.spatial import cKDTree
+
+    a = template @ est[:3, :3].T + est[:3, 3]
+    b = template @ gt[:3, :3].T + gt[:3, 3]
+    return float(cKDTree(b).query(a)[0].mean() * 100.0)
+
+
+def run_objects(device):
+    """benchmarks/objects_bench.py's setting through ``detect_object``: the
+    full D435 camera at 640x480, the clutter scene at seed 3,
+    ObjectConfig(cluster_min_size=40, size_gate=250), the four captured
+    class templates and a 0.3 x 0.3 x 0.02 m plate that matches no object.
+    Returns the K1 launches of the counted calls."""
+    from perception_tpu_torch.bench.clutter_scene import captured_template, render_depth_clutter, standard_clutter_poses
+    from perception_tpu_torch.geometry.camera import PinholeCamera
+    from perception_tpu_torch.io.templates import box_surface_template
+    from perception_tpu_torch.models.objects import ObjectConfig, detect_object, working_set
+    from perception_tpu_torch.ops import icp, ransac
+    from perception_tpu_torch.ops.ransac import _sample_indices
+
+    camera = PinholeCamera.d435_depth()
+    poses = standard_clutter_poses()
+    pts_cpu, mask_cpu = camera.backproject_depth(torch.from_numpy(render_depth_clutter(camera, poses, seed=3)))
+    templates = {name: captured_template(name, camera) for name in OBJ_CLASSES}
+    templates["plate"] = box_surface_template((0.3, 0.3, 0.02), 0.003)
+    cfg = ObjectConfig(cluster_min_size=40, size_gate=250)
+    pts, mask = pts_cpu.to(device), mask_cpu.to(device)
+    on_card = {name: (torch.from_numpy(t).to(device), torch.ones(len(t), dtype=torch.bool, device=device))
+               for name, t in templates.items()}
+    gen = torch.Generator(device=device).manual_seed(0)
+    print(f"objects scene: {camera.width}x{camera.height}, {int(mask_cpu.sum())} valid points, template points "
+          f"{ {name: len(t) for name, t in templates.items()} }")
+
+    # The path, counted: one call per template.
+    reset_launches()
+    results = {name: detect_object(pts, mask, *on_card[name], gen, cfg) for name in templates}
+    torch.cuda.synchronize()
+    counts = read_launches()
+    print(f"objects path: {len(templates)} x detect_object: launches {counts}")
+    require(counts == {"ransac_score": len(templates), "icp_gn": 0, "voxelhash_query": 0},
+            f"expected {len(templates)} K1 launches (one per call) and no other kernel")
+    for name, res in results.items():
+        r = type(res)(*(t.cpu() for t in res))
+        require(all(bool(torch.isfinite(t).all()) for t in r if t.is_floating_point() and t is not r.fitness),
+                f"objects {name}: non-finite output")
+        line = (f"objects [{name}]: success {bool(r.success)}, cluster {int(r.cluster_id)}, size diff "
+                f"{int(r.size_diff)}, clusters {int(r.num_clusters)} sizes {r.cluster_sizes.tolist()}, "
+                f"fitness {float(r.fitness):.3e}")
+        if name == "plate":
+            print(line)
+            require(not bool(r.success) and int(r.cluster_id) == -1, "objects: the plate was not rejected")
+            continue
+        err = chamfer_cm(templates[name], r.pose.numpy().astype(np.float64), poses[name])
+        success, cluster, diff, ref_err = OBJ_JAX_REFERENCE[name]
+        print(f"{line}, chamfer {err:.3f} cm (JAX package: cluster {cluster}, size diff {diff}, chamfer {ref_err} cm)")
+        require((bool(r.success), int(r.cluster_id), int(r.size_diff)) == (success, cluster, diff),
+                f"objects {name}: the answer differs from the JAX package's")
+        require(abs(err - ref_err) <= 0.05 and (ref_err >= 1.0 or err < 1.0),
+                f"objects {name}: chamfer {err:.3f} cm against the JAX package's {ref_err} cm")
+
+    # The card against the port's CPU path, with the same RANSAC triplets.
+    _, dm, _ = working_set(pts_cpu, mask_cpu, cfg)
+    idx = _sample_indices(torch.Generator().manual_seed(11), dm, cfg.ransac_hypotheses)
+    for name in OBJ_CPU_CLASSES:
+        t0 = time.perf_counter()
+        c = detect_object(pts_cpu, mask_cpu, torch.from_numpy(templates[name]),
+                          torch.ones(len(templates[name]), dtype=torch.bool), None, cfg, indices=idx)
+        cpu_s = time.perf_counter() - t0
+        g = detect_object(pts, mask, *on_card[name], None, cfg, indices=idx)
+        g = type(g)(*(t.cpu() for t in g))
+        dt = float((c.pose[:3, 3] - g.pose[:3, 3]).norm())
+        same = all(torch.equal(getattr(c, f), getattr(g, f))
+                   for f in ("success", "cluster_id", "cluster_sizes", "size_diff", "num_clusters"))
+        print(f"objects [{name}] cuda vs cpu (same triplets): success, cluster, sizes, size diff equal {same}, "
+              f"translation diff {dt * 1e3:.6f} mm (cpu call {cpu_s:.1f} s)")
+        require(same, f"objects {name}: CUDA and CPU disagree")
+        require(dt <= 1e-3, f"objects {name}: CUDA and CPU poses differ by more than 1 mm")
+
+    # Host syncs of one call: 2 in each ICP trip's batched SVD, the ICP's
+    # done.all() read every DONE_CHECK_EVERY trips, 1 in the plane refit's eigh.
+    svd = f"ops/icp.py:{source_line(icp, 'torch.linalg.svd(')}"
+    done = f"ops/icp.py:{source_line(icp, 'bool(done.all())')}"
+    eigh = f"ops/ransac.py:{source_line(ransac, 'torch.linalg.eigh(')}"
+    for name in ("eraser", "clamp"):
+        torch.cuda.synchronize()
+        with counted_calls(icp, "_umeyama") as trips, recorded_syncs() as sites:
+            detect_object(pts, mask, *on_card[name], gen, cfg)
+        n = len(trips)
+        reads = len([k for k in range(icp.DONE_CHECK_EVERY, n + 1, icp.DONE_CHECK_EVERY)
+                     if k < cfg.icp_max_iterations])
+        print(f"objects [{name}]: {n} ICP trips of {cfg.icp_max_iterations}")
+        require_syncs(f"objects [{name}]", sites, {svd: 2 * n, done: reads, eigh: 1})
+
+    # ms per call per class: median of OBJ_TIMED_CALLS after a warm-up.
+    for name in templates:
+        runs = []
+        detect_object(pts, mask, *on_card[name], gen, cfg)
+        torch.cuda.synchronize()
+        for _ in range(OBJ_TIMED_CALLS):
+            t0 = time.perf_counter()
+            detect_object(pts, mask, *on_card[name], gen, cfg)
+            torch.cuda.synchronize()
+            runs.append((time.perf_counter() - t0) * 1e3)
+        print(f"objects [{name}]: {statistics.median(runs):.2f} ms per call (calls {[round(r, 2) for r in runs]})")
+    from perception_tpu_torch.models import objects
+
+    for name in ("eraser", "clamp"):
+        print(f"objects [{name}] stage ms (synchronized): " + str(stage_ms(
+            lambda: detect_object(pts, mask, *on_card[name], gen, cfg),
+            {"front end": [(objects, "front_end")], "icp": [(objects, "icp_batched")]})))
+    busy, wall, by_name, _ = device_profile(lambda: detect_object(pts, mask, *on_card["eraser"], gen, cfg), 2)
+    print(f"objects [eraser] profile (torch.profiler, 2 calls): device busy share {busy:.4f}, wall {wall:.2f} ms "
+          f"a call, top device ms a call {top_ms(by_name)}")
+    return counts["ransac_score"]
+
+
+def run_cuboid_modes(device):
+    """The 8 bench frames through the cuboid pipeline (B=8) with
+    ``cluster_filter="cc"`` and with ``icp_mode="p2p"`` at the default
+    iterations: all accepted within 2 cm, one K1 launch a call, the card
+    against the CPU on the same triplets; then ``pcl_parity()`` on the
+    first frames, timed. Returns the K1 launches of the counted calls."""
+    import dataclasses
+
+    from perception_tpu_torch.bench.scene import bench_frames, benchmark_template
+    from perception_tpu_torch.geometry.camera import PinholeCamera
+    from perception_tpu_torch.models.cuboid import (
+        CuboidConfig,
+        cuboid_pipeline_batch,
+        decimate,
+        ransac_input,
+        template_features,
+    )
+    from perception_tpu_torch.ops.ransac import _sample_indices
+
+    camera = PinholeCamera.d435_depth()
+    tnp = benchmark_template()
+    depths_np, gts = bench_frames(camera, range(FRAMES))
+    depths_cpu = torch.from_numpy(depths_np)
+    depths = depths_cpu.to(device)
+    launches = 0
+    for name, cfg in (("cc", CuboidConfig(cluster_filter="cc")), ("p2p", CuboidConfig(icp_mode="p2p"))):
+        state = {}
+        for dev in ("cpu", device):
+            t, tn, tm = template_features(tnp, np.ones(len(tnp), bool), cfg, device=dev)
+            state[str(dev)] = dict(template=t, template_mask=tm, template_normals=tn)
+        gen = torch.Generator(device=device).manual_seed(0)
+        reset_launches()
+        res = cuboid_pipeline_batch(depths, camera, generator=gen, config=cfg, **state[str(device)])
+        torch.cuda.synchronize()
+        counts = read_launches()
+        launches += counts["ransac_score"]
+        err = translation_errors(res, gts)
+        acc = res.accepted.cpu().numpy()
+        print(f"cuboid [{name}] B={FRAMES}: accepted {acc.tolist()}, translation error mm "
+              f"{np.round(err * 1e3, 2).tolist()}, launches {counts}")
+        require(counts == {"ransac_score": 1, "icp_gn": 0, "voxelhash_query": 0}, f"cuboid {name}: launches {counts}")
+        limit = 0.02 if name == "cc" else np.maximum(0.02, np.array(P2P_JAX_ERROR_MM) * 1e-3 + 1e-3)
+        require(acc.all() and np.all(err <= limit), f"cuboid {name}: not 8/8 accepted within {limit} m")
+        require(all(bool(torch.isfinite(t).all()) for t in res if t.is_floating_point()), f"cuboid {name}: non-finite")
+
+        d, cam2 = decimate(depths_cpu, camera, cfg.depth_stride)
+        _, dm = ransac_input(*cam2.backproject_depth(d), cfg)
+        idx = _sample_indices(torch.Generator().manual_seed(7), dm, cfg.ransac_hypotheses)
+        c = cuboid_pipeline_batch(depths_cpu, camera, config=cfg, indices=idx, **state["cpu"])
+        g = cuboid_pipeline_batch(depths, camera, config=cfg, indices=idx, **state[str(device)])
+        g = type(g)(*(t.cpu() for t in g))
+        dt = np.linalg.norm((c.pose[:, :3, 3] - g.pose[:, :3, 3]).numpy(), axis=-1)
+        print(f"cuboid [{name}] cuda vs cpu (same triplets): accepted equal {torch.equal(c.accepted, g.accepted)}, "
+              f"translation diff max {dt.max() * 1e3:.4f} mm")
+        require(torch.equal(c.accepted, g.accepted) and np.all(dt <= 1e-3), f"cuboid {name}: CUDA and CPU disagree")
+        fps, runs = frames_per_s(
+            lambda: cuboid_pipeline_batch(depths, camera, generator=gen, config=cfg, **state[str(device)]), FRAMES)
+        print(f"cuboid [{name}] B={FRAMES}: {fps:.2f} frames/s (passes {[round(r, 2) for r in runs]})")
+
+    cfg = CuboidConfig.pcl_parity()
+    t, tn, tm = template_features(tnp, np.ones(len(tnp), bool), cfg, device=device)
+    gen = torch.Generator(device=device).manual_seed(0)
+    sub = depths[:PARITY_FRAMES]
+    cuboid_pipeline_batch(sub, camera, t, tm, gen, dataclasses.replace(cfg, icp_max_iterations=1), template_normals=tn)
+    torch.cuda.synchronize()
+    reset_launches()
+    t0 = time.perf_counter()
+    res = cuboid_pipeline_batch(sub, camera, t, tm, gen, cfg, template_normals=tn)
+    torch.cuda.synchronize()
+    ms = (time.perf_counter() - t0) * 1e3
+    counts = read_launches()
+    launches += counts["ransac_score"]
+    err = translation_errors(res, gts[:PARITY_FRAMES])
+    print(f"cuboid [pcl_parity] B={PARITY_FRAMES}: {ms:.1f} ms, accepted {res.accepted.tolist()}, fitness "
+          f"{res.fitness.tolist()}, translation error mm {np.round(err * 1e3, 2).tolist()}, launches {counts}")
+    require(counts["ransac_score"] == 1, "cuboid pcl_parity: not one K1 launch")
+    require(all(bool(torch.isfinite(x).all()) for x in res if x.is_floating_point()), "cuboid pcl_parity: non-finite")
+    return launches
+
+
+def tracking_scene():
+    """tracking_bench.py's scene: the 640x480 camera at fx 384, the three
+    cuboids of CUBOID_SET with their templates (density 6 mm), and the
+    300-frame camera_trajectory rendered once (frames in parallel, seed =
+    frame index): (camera, templates (3, Nt, 3), masks, depths, gts)."""
+    from perception_tpu_torch.bench.tracking_scene import CUBOID_SET, camera_trajectory, render_depth_cuboids
+    from perception_tpu_torch.geometry.camera import PinholeCamera
+    from perception_tpu_torch.io.templates import cuboid_template
+
+    w, h = 640, 480
+    fx = 384.0 * w / 640.0
+    camera = PinholeCamera.from_K([fx, 0, w / 2, 0, fx, h / 2, 0, 0, 1], width=w, height=h)
+    tmpls = [cuboid_template(*dims, density=0.006) for dims, _ in CUBOID_SET]
+    nt = max(len(t) for t in tmpls)
+    templates, tmasks = np.zeros((len(tmpls), nt, 3), np.float32), np.zeros((len(tmpls), nt), bool)
+    for k, t in enumerate(tmpls):
+        templates[k, :len(t)], tmasks[k, :len(t)] = t, True
+    traj = camera_trajectory(TRACK_FRAMES)
+    with ThreadPoolExecutor(8) as pool:
+        frames = list(pool.map(lambda i: render_depth_cuboids(camera, traj[i], seed=i), range(TRACK_FRAMES)))
+    return camera, templates, tmasks, np.stack([d for d, _ in frames]), np.stack([np.stack(g) for _, g in frames])
+
+
+def tracking_config():
+    """tracking_bench.py's TrackingConfig."""
+    from perception_tpu_torch.models.object_tracking import TrackingConfig
+    from perception_tpu_torch.models.objects import ObjectConfig
+
+    det = ObjectConfig(table_z_cut=0.9, z_limits=(0.0, 0.9), x_limits=(-0.35, 0.35), voxel_size=0.005,
+                       cluster_min_size=40, cluster_capacity=1024, offplane_capacity=2048, work_capacity=24576)
+    return TrackingConfig(detection=det, max_tracks=3, warm_icp_iterations=24)
+
+
+def run_tracker(device):
+    """The streaming tracker through ``track_step_from_depth`` over the
+    300-frame sweep: frames/s, median and p90 error of latched slots,
+    latched and warm shares, gated; the card against the CPU over the first
+    frames on the same triplets; one host read of ``steady`` a frame.
+    Returns the K1 launches of the counted pass."""
+    from perception_tpu_torch.models import object_tracking
+    from perception_tpu_torch.models.cuboid import decimate
+    from perception_tpu_torch.models.object_tracking import init_tracks, slot_template_normals, track_step_from_depth
+    from perception_tpu_torch.models.objects import working_set
+    from perception_tpu_torch.ops import ransac
+    from perception_tpu_torch.ops.ransac import _sample_indices
+
+    t0 = time.perf_counter()
+    camera, templates_np, tmasks_np, depths_np, gts = tracking_scene()
+    print(f"tracking scene: {TRACK_FRAMES} frames {camera.width}x{camera.height}, fx {camera.fx:.1f}, "
+          f"rendered in {time.perf_counter() - t0:.1f} s")
+    cfg = tracking_config()
+    K = cfg.max_tracks
+    on = {}
+    for dev in ("cpu", device):
+        t, m = torch.from_numpy(templates_np).to(dev), torch.from_numpy(tmasks_np).to(dev)
+        on[str(dev)] = (t, m, slot_template_normals(t, m))
+    depths = torch.from_numpy(depths_np).to(device)
+    gen = torch.Generator(device=device).manual_seed(0)
+
+    def step(slots, depth, dev=device, **kw):
+        t, m, tn = on[str(dev)]
+        return track_step_from_depth(slots, depth, camera, t, m, kw.pop("gen", gen), cfg, template_normals=tn, **kw)
+
+    step(init_tracks(cfg, device), depths[0])  # warm-up
+    torch.cuda.synchronize()
+    # The path, counted and timed.
+    reset_launches()
+    slots, hist = init_tracks(cfg, device), []
+    t0 = time.perf_counter()
+    for i in range(TRACK_FRAMES):
+        slots, diag = step(slots, depths[i])
+        hist.append((slots.pose, slots.latched, diag.used_warm))
+    torch.cuda.synchronize()
+    fps = TRACK_FRAMES / (time.perf_counter() - t0)
+    counts = read_launches()
+    print(f"tracker path: {TRACK_FRAMES} x track_step_from_depth: launches {counts}")
+    require(counts == {"ransac_score": TRACK_FRAMES, "icp_gn": 0, "voxelhash_query": 0},
+            f"expected {TRACK_FRAMES} K1 launches (one a frame) and no other kernel")
+    pose = torch.stack([h[0] for h in hist]).cpu().numpy()
+    latched = torch.stack([h[1] for h in hist]).cpu().numpy()
+    warm = torch.stack([h[2] for h in hist]).cpu().numpy()
+    require(np.isfinite(pose).all(), "tracker: non-finite pose")
+    errs = np.linalg.norm(pose[..., :3, 3] - gts[..., :3, 3], axis=-1)[latched]
+    med, p90 = float(np.median(errs) * 100), float(np.percentile(errs, 90) * 100)
+    latched_pct = 100.0 * latched.mean()
+    warm_pct = 100.0 * warm.sum() / max(latched.sum(), 1)
+    print(f"tracker: {fps:.2f} frames/s, median error {med:.3f} cm, p90 {p90:.3f} cm, latched {latched_pct:.2f}%, "
+          f"warm {warm_pct:.2f}% ({K} objects, {camera.width}x{camera.height})")
+    require(latched_pct >= 95.0, "tracker: latched under 95%")
+    require(med <= 2.0 and p90 <= 5.0, "tracker: median error over 2 cm or p90 over 5 cm")
+
+    # The card against the port's CPU path, with the same RANSAC triplets.
+    slots = {"cpu": init_tracks(cfg, "cpu"), str(device): init_tracks(cfg, device)}
+    for i in range(TRACK_CPU_FRAMES):
+        d, cam2 = decimate(torch.from_numpy(depths_np[i]), camera, cfg.depth_stride)
+        p, m = cam2.backproject_depth(d, min_depth=0.05, max_depth=5.0)
+        _, dm, _ = working_set(p, m, cfg.detection)
+        idx = _sample_indices(torch.Generator().manual_seed(i), dm, cfg.detection.ransac_hypotheses)
+        out = {}
+        for dev in ("cpu", device):
+            slots[str(dev)], diag = step(slots[str(dev)], depths[i].to(dev), dev, gen=None, indices=idx)
+            out[str(dev)] = [x.cpu() for x in (*slots[str(dev)], diag.assigned)]
+        (cp, cl, _, cm, _, ca), (gp, gl, _, gm, _, ga) = out["cpu"], out[str(device)]
+        dt = float((cp[:, :3, 3] - gp[:, :3, 3]).norm(dim=-1).max())
+        print(f"tracker frame {i} cuda vs cpu (same triplets): latched {gl.tolist()} / {cl.tolist()}, misses "
+              f"{gm.tolist()} / {cm.tolist()}, assigned {ga.tolist()} / {ca.tolist()}, translation diff {dt * 1e3:.6f} mm")
+        require(torch.equal(cl, gl) and torch.equal(cm, gm) and torch.equal(ca, ga) and dt <= 1e-3,
+                f"tracker frame {i}: CUDA and CPU disagree")
+
+    # One host read a frame (steady), and the plane refit's eigh.
+    steady = f"models/object_tracking.py:{source_line(object_tracking, 'steady = bool(')}"
+    eigh = f"ops/ransac.py:{source_line(ransac, 'torch.linalg.eigh(')}"
+    slots = init_tracks(cfg, device)
+    torch.cuda.synchronize()
+    for i in range(TRACK_SYNC_FRAMES):
+        with recorded_syncs() as sites:
+            slots, _ = step(slots, depths[i])
+        require_syncs(f"tracker frame {i}", sites, {steady: 1, eigh: 1})
+
+    frames = itertools.cycle(range(TRACK_SYNC_FRAMES, TRACK_FRAMES))
+    holder = [slots]
+
+    def one():
+        holder[0], _ = step(holder[0], depths[next(frames)])
+
+    print("tracker stage ms (synchronized, one steady frame): " + str(stage_ms(
+        one, {"front end": [(object_tracking, "_front_end")], "icp": [(object_tracking, "icp_point_to_plane")]})))
+    busy, wall, by_name, _ = device_profile(one, 10)
+    print(f"tracker profile (torch.profiler, 10 steady frames): device busy share {busy:.4f}, wall {wall:.2f} ms "
+          f"a frame, top device ms a frame {top_ms(by_name)}")
+    return counts["ransac_score"]
+
+
 def json_times(t):
     """A kernel's times for the JSON line: ``ms`` the eager wrapper call,
     ``device_ms`` its device time by graph replay. No single PyTorch call
@@ -963,6 +1411,10 @@ def main() -> int:
           f"rendered in {time.perf_counter() - t0:.1f} s")
     odo_launches, _ = run_odometry_paths(device, scene)
     slam_launches = run_slam_paths(device, scene)
+    del scene
+    mode_launches = run_cuboid_modes(device)
+    obj_launches = run_objects(device)
+    track_launches = run_tracker(device)
 
     k1_times = time_kernel(device)
     k2_times = time_k2(device)
@@ -973,15 +1425,20 @@ def main() -> int:
           f"B={FRAMES} {fps8:.2f} frames/s (passes {[round(r, 2) for r in runs8]})")
 
     print(json.dumps({"kernels": [
-        {
+        *({
             "name": "ransac_score",
+            "shape": shape,
             "route": "cuda",
             "source": "perception_tpu_torch/csrc/ransac_score.cu",
             "replaces": "perception_tpu/ops/pallas/ransac_score.py:60",
-            "launches": cuboid_launches,
+            "launches": launches,
             "max_abs_err": k1_err,
-            **json_times(k1_times[1]),
-        },
+            **json_times(k1_times[bn]),
+        } for shape, launches, bn in (
+            ("B=1 N=8192 K=1024 (cuboid, every mode)", cuboid_launches + mode_launches, (1, 8192)),
+            ("B=1 N=32768 K=1024 (detect_object)", obj_launches, (1, 32768)),
+            ("B=1 N=24576 K=1024 (tracker)", track_launches, (1, 24576)),
+        )),
         {
             "name": "icp_gn",
             "route": "cuda",

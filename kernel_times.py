@@ -2,7 +2,7 @@
 
     python3 kernel_times.py [CHECKOUT]
 
-For K1 (B=1, 8), K2 (4096 x 8192, 2048 x 4096, 8192 x 32768) and K3+K4
+For K1 (B=1 and 8 at N=8192, B=1 at 32768 and 24576), K2 (4096 x 8192, 2048 x 4096, 8192 x 32768) and K3+K4
 (2048 queries on a 32768-point map, 4096 on 65536), on ``chip_smoke.py``'s
 inputs: the eager wrapper call by CUDA events (``ms``), each kernel's mean
 device time per launch by torch.profiler (``by_kernel_us``), and the sum of
@@ -39,9 +39,9 @@ def cases(device):
     from perception_tpu_torch.ops.kernels.voxelhash_query import voxelhash_query
 
     out = []
-    for b in (1, 8):
-        pts, mask, hyp = chip_smoke.kernel_inputs(b, 8192, 1024, False, device, seed=1)
-        out.append(("K1", f"B={b} 8192x1024", lambda a=(pts, mask, hyp): ransac_score(*a, chip_smoke.TAU)))
+    for b, n in chip_smoke.K1_TIMED:
+        pts, mask, hyp = chip_smoke.kernel_inputs(b, n, 1024, False, device, seed=1)
+        out.append(("K1", f"B={b} {n}x1024", lambda a=(pts, mask, hyp): ransac_score(*a, chip_smoke.TAU)))
     for r, n, m in ((1, 4096, 8192), (1, 2048, 4096), (1, 8192, 32768)):
         args = chip_smoke.k2_inputs(r, n, m, False, device, seed=1)
         out.append(("K2", f"{n}x{m}", lambda a=args: gn_system_packed(*a, 0.25, 0.02, return_stats=True)))

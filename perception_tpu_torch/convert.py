@@ -8,8 +8,9 @@ of the JAX side's values). Odometry's state is an ``OdometryState``:
 keyframe SLAM system's state is a ``SlamState``: ``slam_state_from_jax``
 takes one the same way, and views the BRIEF descriptors (``uint32`` in
 JAX) as the port's ``int32`` words. So both packages compute on the same
-state. Each puts the state on the card unless the caller passes
-``device="cpu"``.
+state. The streaming tracker's state is its ``TrackSlots``:
+``track_slots_from_jax`` takes one whose leaves are numpy arrays. Each
+puts the state on the card unless the caller passes ``device="cpu"``.
 """
 
 from __future__ import annotations
@@ -20,6 +21,7 @@ import numpy as np
 import torch
 
 from perception_tpu_torch.geometry.camera import PinholeCamera
+from perception_tpu_torch.models.object_tracking import TrackSlots
 from perception_tpu_torch.models.slam.odometry import OdometryState
 from perception_tpu_torch.models.slam.system import (
     EdgeList,
@@ -85,3 +87,9 @@ def slam_state_from_jax(state, device="cuda") -> SlamState:
         current_kf=_leaf(state.current_kf, device),
         loop_found=_leaf(state.loop_found, device),
     )
+
+
+def track_slots_from_jax(slots, device="cuda") -> TrackSlots:
+    """A JAX ``TrackSlots`` whose leaves are numpy arrays
+    (``jax.tree.map(np.asarray, slots)``) -> the port's slots on ``device``."""
+    return TrackSlots(*(_leaf(getattr(slots, name), device) for name in TrackSlots._fields))

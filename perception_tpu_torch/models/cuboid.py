@@ -4,8 +4,9 @@ Counterpart of ``perception_tpu/models/cuboid.py``:
 
   depth -> stride-2 decimation + backprojection -> passthrough z/x ->
   compact -> 5 mm voxel downsample -> compact_prefix -> RANSAC ground
-  plane -> off-plane compaction -> dominant-blob filter -> yaw-restart
-  point-to-plane ICP against the template -> pose + fitness gate + bbox.
+  plane -> off-plane compaction -> dominant-blob filter (or the largest
+  connected component) -> yaw-restart point-to-plane (or point-to-point)
+  ICP against the template -> pose + fitness gate + bbox.
 
 Every stage takes one frame or a batch of B frames. RANSAC scoring (the
 fused kernel), RANSAC itself and ICP run the batch as a real dimension
@@ -28,7 +29,8 @@ from perception_tpu_torch.geometry import se3
 from perception_tpu_torch.geometry.camera import PinholeCamera
 from perception_tpu_torch.io.templates import cuboid_vertices
 from perception_tpu_torch.ops import points as P
-from perception_tpu_torch.ops.icp import icp_point_to_plane
+from perception_tpu_torch.ops.cluster import euclidean_cluster
+from perception_tpu_torch.ops.icp import icp_batched, icp_point_to_plane
 from perception_tpu_torch.ops.ransac import PlaneFit, ransac_plane
 
 
@@ -46,7 +48,7 @@ class CuboidConfig:
     icp_restarts: int = 4
     icp_mode: str = "p2plane"
     fitness_threshold: float = 4.0e-4
-    cluster_filter: str = "blob"   # 'blob' | 'cc' (not ported yet) | 'off'
+    cluster_filter: str = "blob"   # 'blob' | 'cc' | 'off'
     cluster_tolerance: float = 0.02
     blob_radius: Optional[float] = None  # None -> circumradius + 2 cm
     depth_stride: int = 2
@@ -58,9 +60,8 @@ class CuboidConfig:
 
     @classmethod
     def pcl_parity(cls) -> "CuboidConfig":
-        """Reference-budget parity mode (PCL point-to-point ICP, full
-        resolution, connected components). Its ICP and clustering are
-        not ported yet, so the pipeline raises NotImplementedError on it."""
+        """Reference-budget parity mode: PCL point-to-point ICP with a
+        5000-iteration cap, full-resolution depth, connected components."""
         return cls(
             icp_mode="p2p",
             icp_max_iterations=5000,
@@ -206,16 +207,12 @@ def estimate_cuboid_pose(
     config: CuboidConfig = CuboidConfig(),
     template_normals: Optional[torch.Tensor] = None,
 ):
-    """Yaw-restart point-to-plane ICP of (N, 3) or (B, N, 3) scene clouds
-    against the template. Returns (pose, fitness, converged); ``pose``
-    maps template points into the camera frame (the inverse of the best
-    scene->template transform)."""
-    if config.icp_mode != "p2plane":
-        raise NotImplementedError(
-            f"icp_mode={config.icp_mode!r}: point-to-point ICP is not ported yet "
-            "(ROADMAP.md, Queue 2: icp_point_to_point / icp_batched / pcl_parity)"
-        )
-    if template_normals is None:
+    """Yaw-restart ICP of (N, 3) or (B, N, 3) scene clouds against the
+    template, point-to-plane (``icp_mode="p2plane"``, which needs
+    ``template_normals``) or point-to-point (``"p2p"``). Returns (pose,
+    fitness, converged); ``pose`` maps template points into the camera
+    frame (the inverse of the best scene->template transform)."""
+    if config.icp_mode == "p2plane" and template_normals is None:
         raise ValueError("template_normals is required: take them from template_features()")
     k = config.icp_restarts
     cs = P.centroid(box_points, box_mask)
@@ -225,11 +222,18 @@ def estimate_cuboid_pose(
     lead = box_points.shape[:-2]
     sources = box_points[..., None, :, :].expand(lead + (k,) + box_points.shape[-2:])
     masks = box_mask[..., None, :].expand(lead + (k,) + box_mask.shape[-1:])
-    res = icp_point_to_plane(
-        sources, masks, template, template_normals, template_mask, inits,
-        max_iterations=config.icp_max_iterations,
-        transformation_epsilon=1e-12,
-    )
+    if config.icp_mode == "p2plane":
+        res = icp_point_to_plane(
+            sources, masks, template, template_normals, template_mask, inits,
+            max_iterations=config.icp_max_iterations,
+            transformation_epsilon=1e-12,
+        )
+    else:
+        res = icp_batched(
+            sources, masks, template, template_mask, init_transforms=inits,
+            max_iterations=config.icp_max_iterations,
+            transformation_epsilon=1e-9,
+        )
     best = torch.argmin(res.fitness, dim=-1, keepdim=True)  # (..., 1)
     T_best = torch.take_along_dim(res.transform, best[..., None, None], dim=-3)[..., 0, :, :]
     fitness = torch.take_along_dim(res.fitness, best, dim=-1)[..., 0]
@@ -249,14 +253,17 @@ def cuboid_pipeline_step(
 ) -> CuboidResult:
     """Full pipeline on an (N, 3) or (B, N, 3) masked cloud; pass a
     template preprocessed by ``template_features`` and its normals."""
-    if config.cluster_filter == "cc":
-        raise NotImplementedError(
-            "cluster_filter='cc': connected-components clustering is not ported yet "
-            "(ROADMAP.md, Queue 2: cluster_filter='cc')"
-        )
     fit, dpts, box_mask = segment_ground_plane(points, mask, generator, config, indices)
     box_pts, box_m = _per_frame(lambda p, m: P.compact(p, m, config.box_capacity), dpts, box_mask)
-    if config.cluster_filter == "blob":
+    if config.cluster_filter == "cc":
+        def largest(p, m):
+            cl = euclidean_cluster(p, m, tolerance=config.cluster_tolerance, min_size=1,
+                                   max_size=config.box_capacity, max_clusters=8)
+            return m & (cl.labels == 0)
+
+        box_m = _per_frame(largest, box_pts, box_m)
+        box_pts = P.apply_mask(box_pts, box_m)
+    elif config.cluster_filter == "blob":
         radius = config.blob_radius
         if radius is None:
             radius = 0.5 * float(np.linalg.norm(config.dims)) + 0.02

@@ -247,6 +247,20 @@ def init_state(camera: PinholeCamera, depth0: torch.Tensor,
     )
 
 
+def _nearest_k(d2: torch.Tensor, k: int):
+    """The k smallest of each row of ``d2`` as (indices, values), in (value,
+    index) order: equal distances lower index first, as the JAX package's
+    ``approx_max_k`` gives them on the CPU (its exact fallback), so the
+    shortlist's first-minimum argmin takes the same copy. ``torch.topk``
+    promises no order among ties, so its k are re-sorted, by index and
+    then stably by value. A tie at the k-th place can still change which
+    points make the shortlist."""
+    vals, idx = torch.topk(d2, k, dim=1, largest=False)
+    idx, order = torch.sort(idx, dim=1)
+    vals, order = torch.sort(torch.gather(vals, 1, order), dim=1, stable=True)
+    return torch.gather(idx, 1, order), vals
+
+
 def _track_map(state: OdometryState, src_pts, src_mask, T0, cfg: OdometryConfig):
     """Map mode: GN against the fused map with the configured engine.
     Returns (T, num_corr, fitness, nn_overflow, src_mask)."""
@@ -282,7 +296,7 @@ def _track_map(state: OdometryState, src_pts, src_mask, T0, cfg: OdometryConfig)
                 ci = torch.argmin(seg, dim=2) + torch.arange(k, device=seg.device)[None] * seg.shape[2]
                 ci = torch.clamp(ci, max=m - 1)
             else:
-                ci = torch.topk(d2_full, k, dim=1, largest=False).indices
+                ci = _nearest_k(d2_full, k)[0]
             return ci, state.map_points[ci]
 
         def shortlist_query(cand_idx, cand_pts):

@@ -1,9 +1,10 @@
-"""Surface normals of an organized depth cloud.
+"""Surface normals of masked clouds and organized depth images.
 
-Counterpart of ``perception_tpu/ops/normals.py``'s ``normals_from_depth``:
-the cross product of central-difference image tangents, oriented toward
-the viewpoint (PCL's ``flipNormalTowardsViewpoint``). ``normals_knn``
-(PCA over k nearest neighbours) is later work (ROADMAP.md, Queue 2).
+Counterpart of ``perception_tpu/ops/normals.py``: ``normals_knn``, PCA
+over the k nearest neighbours (the smallest eigenvector of the local
+scatter), and ``normals_from_depth``, the cross product of
+central-difference image tangents. Both orient toward the viewpoint
+(PCL's ``flipNormalTowardsViewpoint``).
 """
 
 from __future__ import annotations
@@ -13,12 +14,36 @@ from typing import Tuple
 import torch
 
 from perception_tpu_torch._tensor import const
+from perception_tpu_torch.ops import nn as _nn
 
 
 def _orient(normals: torch.Tensor, points: torch.Tensor, viewpoint) -> torch.Tensor:
     to_vp = const(viewpoint, points) - points
     flip = torch.sum(normals * to_vp, dim=-1, keepdim=True) < 0
     return torch.where(flip, -normals, normals)
+
+
+def normals_knn(
+    points: torch.Tensor,
+    mask: torch.Tensor,
+    k: int = 16,
+    viewpoint=(0.0, 0.0, 0.0),
+) -> Tuple[torch.Tensor, torch.Tensor]:
+    """Unit normals (N, 3) and validity (N,) of a masked (N, 3) cloud by
+    local PCA. A normal is valid when at least 3 of its k neighbours are
+    real points (masked refs sit at the sentinel, past 1e6 m^2)."""
+    idx, d2 = _nn.knn(points, points, mask, k=k)
+    neigh = points[idx]
+    w = (d2 < 1.0e6).to(points.dtype)
+    count = torch.sum(w, dim=-1, keepdim=True)
+    mean = torch.sum(neigh * w[..., None], dim=-2, keepdim=True) / torch.clamp(count[..., None], min=1.0)
+    centered = (neigh - mean) * w[..., None]
+    cov = torch.einsum("nki,nkj->nij", centered, centered)
+    _, evecs = torch.linalg.eigh(cov)
+    normals = evecs[..., 0]
+    normals = normals / torch.clamp(torch.linalg.vector_norm(normals, dim=-1, keepdim=True), min=1e-12)
+    normals = _orient(normals, points, viewpoint)
+    return normals, mask & (count[..., 0] >= 3)
 
 
 def normals_from_depth(

@@ -132,13 +132,16 @@ def test_empty_scene_is_rejected():
 
 
 def test_unported_modes_raise():
+    """Every mode is ported now: p2p runs without normals; what still raises
+    is point-to-plane without them and a batch that is not (B, H, W)."""
     t, tn, tm = _template()
     pts, mask = torch.zeros(64, 3), torch.zeros(64, dtype=torch.bool)
     g = torch.Generator()
-    with pytest.raises(NotImplementedError, match="ROADMAP"):
-        cuboid_pipeline_step(pts, mask, t, tm, g, CuboidConfig.pcl_parity(), template_normals=tn)
-    with pytest.raises(NotImplementedError, match="ROADMAP"):
-        estimate_cuboid_pose(pts, mask, t, tm, CuboidConfig(icp_mode="p2p"), template_normals=tn)
+    pose, fitness, _ = estimate_cuboid_pose(pts, mask, t, tm, CuboidConfig(icp_mode="p2p", icp_max_iterations=2))
+    assert pose.shape == (4, 4) and bool(torch.isfinite(pose).all()) and float(fitness) == 0.0
+    res = cuboid_pipeline_step(pts, mask, t, tm, g, dataclasses.replace(CuboidConfig.pcl_parity(),
+                                                                        icp_max_iterations=2))
+    assert not bool(res.accepted)
     with pytest.raises(ValueError, match="template_normals"):
         estimate_cuboid_pose(pts, mask, t, tm, CFG)
     with pytest.raises(ValueError, match=r"\(B, H, W\)"):

@@ -25,6 +25,12 @@ bits (``cos``/``sin`` round differently), Hamming matches equal on the
 same descriptors; ``bundle_adjust`` within 1e-4; ``slam_step`` over the
 20-frame 96x72 out-and-back scene with the same RANSAC triplets: the same
 promotions, closures and BA runs, poses within 1 mm.
+The objects slice: K1 at the detection service's shape (N=32768,
+K=1024) bit-exact; ``euclidean_cluster`` on the card against the CPU in
+both modes, labels and sizes equal (integer sums; the centroids' float
+atomics within 1e-6); ``detect_object`` on the card against the CPU with
+the same RANSAC triplets: success, cluster id and sizes equal, the pose
+within 1 mm.
 """
 
 import numpy as np
@@ -72,7 +78,7 @@ def random_case(seed, b, n, k):
     return pts, mask, hyp
 
 
-@pytest.mark.parametrize("b,n,k", [(1, 8192, 1024), (2, 777, 100), (3, 1, 1)])
+@pytest.mark.parametrize("b,n,k", [(1, 8192, 1024), (1, 32768, 1024), (2, 777, 100), (3, 1, 1)])
 def test_cuda_kernel_matches_plain_version(cuda_device, b, n, k):
     pts, mask, hyp = (torch.from_numpy(a).to(cuda_device) for a in random_case(b, b, n, k))
     before = ransac_score.launches
@@ -379,3 +385,40 @@ def test_cuda_slam_step_matches_cpu(cuda_device, monkeypatch):
     assert cflags == gflags and launches == 0  # keyframe mode with the op graph
     assert sum(f[0] for f in cflags) >= 5 and sum(f[1] >= 0 for f in cflags) >= 1 and sum(f[2] for f in cflags) >= 1
     assert float((gpu[:, :3, 3] - cpu[:, :3, 3]).norm(dim=-1).max()) <= 1e-3
+
+
+@pytest.mark.parametrize("refine", [False, True])
+def test_cuda_euclidean_cluster_matches_cpu(cuda_device, refine):
+    from perception_tpu_torch.ops.cluster import euclidean_cluster
+
+    rng = np.random.RandomState(4)
+    centres = rng.uniform(-0.3, 0.3, (8, 3))
+    pts = torch.from_numpy((centres[rng.randint(0, 8, 8192)] + rng.randn(8192, 3) * 0.015).astype(np.float32))
+    mask = torch.from_numpy(rng.rand(8192) > 0.1)
+    cpu = euclidean_cluster(pts, mask, min_size=40, max_clusters=8, refine=refine)
+    gpu = euclidean_cluster(pts.to(cuda_device), mask.to(cuda_device), min_size=40, max_clusters=8, refine=refine)
+    assert torch.equal(gpu.labels.cpu(), cpu.labels) and torch.equal(gpu.sizes.cpu(), cpu.sizes)
+    assert int(gpu.num_clusters) == int(cpu.num_clusters) >= 4
+    assert torch.allclose(gpu.centroids.cpu(), cpu.centroids, atol=1e-6, rtol=0)
+
+
+def test_cuda_detect_object_matches_cpu(cuda_device):
+    from perception_tpu_torch.bench.clutter_scene import captured_template, render_depth_clutter, standard_clutter_poses
+    from perception_tpu_torch.models.objects import ObjectConfig, detect_object, working_set
+
+    cam = PinholeCamera.from_K([192.0, 0, 160.0, 0, 192.0, 120.0, 0, 0, 1], 320, 240)
+    depth = torch.from_numpy(render_depth_clutter(cam, standard_clutter_poses(), seed=3))
+    pts, mask = cam.backproject_depth(depth)
+    cfg = ObjectConfig(cluster_min_size=20, work_capacity=8192, offplane_capacity=2048, cluster_capacity=512)
+    tmpl = torch.from_numpy(captured_template("clamp", cam))
+    _, dm, _ = working_set(pts, mask, cfg)
+    idx = _sample_indices(torch.Generator().manual_seed(5), dm, cfg.ransac_hypotheses)
+    before = ransac_score.launches
+    res = [detect_object(pts.to(dev), mask.to(dev), tmpl.to(dev), torch.ones(len(tmpl), dtype=torch.bool, device=dev),
+                         None, cfg, indices=idx) for dev in ("cpu", cuda_device)]
+    torch.cuda.synchronize()
+    assert ransac_score.launches == before + 1
+    c, g = res[0], type(res[1])(*(t.cpu() for t in res[1]))
+    for a, b in zip(c[:1] + c[3:], g[:1] + g[3:]):  # success, cluster id, size diff, count, sizes
+        assert torch.equal(a, b)
+    assert bool(g.success) and float((g.pose[:3, 3] - c.pose[:3, 3]).norm()) <= 1e-3

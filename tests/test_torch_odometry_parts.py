@@ -121,3 +121,44 @@ def test_ate_matches(align):
     want = jmetrics.ate(est, gt, align=align)
     for g, w in zip(got, want):
         np.testing.assert_allclose(g, w, rtol=1e-12, atol=1e-12)
+
+
+def test_shortlist_ties_keep_the_lower_index(scene):
+    """Map mode's shortlist (``map_nn_recall < 1``) over a map whose points
+    each have an exact copy with another normal: every candidate distance
+    ties with its copy's. The JAX package's ``approx_max_k`` falls back to
+    an exact top-k on the CPU and gives ties lower index first, and its
+    shortlist argmin then takes the lower copy; the port must pick the same
+    copies, or the GN step takes the other normals."""
+    jcam, cam, _, depths = scene
+    jcfg, cfg = configs("map-auto")
+    assert cfg.map_nn_recall < 1.0 and odo._map_engine(cfg) == "shortlist"
+    jstate = jodo.init_state(jcam, jnp.asarray(depths[0]), jcfg)
+    pts, nrm, mask = (np.array(a) for a in (jstate.map_points, jstate.map_normals, jstate.map_mask))
+    live = np.flatnonzero(mask)
+    half = len(live) // 2
+    lo, hi = live[:half], live[half:2 * half]
+    # The lower slot gets the copy; the higher keeps the point with its
+    # normal turned a quarter turn, so the two candidates' residuals differ.
+    pts[lo], nrm[lo] = pts[hi], nrm[hi]
+    nrm[hi] = np.cross(nrm[hi], np.array([0.3, 0.5, 0.8], np.float32))
+    nrm[hi] /= np.linalg.norm(nrm[hi], axis=1, keepdims=True)
+    jstate = jstate._replace(map_points=jnp.asarray(pts), map_normals=jnp.asarray(nrm))
+
+    # The shortlist itself, on one distance matrix (rows = source points).
+    rng = np.random.RandomState(0)
+    q = pts[rng.choice(live, 64)] + rng.randn(64, 3).astype(np.float32) * 0.01
+    masked = np.where(mask[:, None], pts, np.float32(1e6)).astype(np.float32)
+    d2 = (np.sum(q * q, 1)[:, None] - 2.0 * (q @ masked.T) + np.sum(masked * masked, 1)[None]).astype(np.float32)
+    _, jidx = jax.lax.approx_max_k(-jnp.asarray(d2), cfg.map_nn_shortlist, recall_target=cfg.map_nn_recall)
+    idx, d2k = odo._nearest_k(torch.from_numpy(d2), cfg.map_nn_shortlist)
+    np.testing.assert_array_equal(idx.numpy(), np.asarray(jidx))
+    np.testing.assert_array_equal(d2k.numpy(), np.take_along_axis(d2, np.asarray(jidx), 1))
+    assert (d2k[:, 1:] == d2k[:, :-1]).sum() > 64  # the copies tie
+
+    # The GN step from that map.
+    state = odometry_state_from_jax(jax.tree_util.tree_map(np.asarray, jstate), device="cpu")
+    jnew, jdiag = jodo.odometry_step(jstate, jnp.asarray(depths[1]), jcam, jcfg)
+    new, diag = odo.odometry_step(state, torch.from_numpy(depths[1]), cam, cfg)
+    assert_diags_close(diag, jdiag)
+    np.testing.assert_allclose(new.pose.numpy(), np.asarray(jnew.pose), atol=1e-5, rtol=0)
