@@ -3,9 +3,12 @@
 Builds the port's three kernels from ``perception_tpu_torch/csrc`` (one
 ``nvcc`` per source, all started together) and holds each against its
 plain PyTorch version at the shapes its path gives it: K1, fused RANSAC
-scoring, bit-exact (N=8192 for the cuboid, 32768 for the detection
-service, 24576 for the tracker); K2, the fused Gauss-Newton ICP system, with equal
-gate counts and M within rtol/atol 1e-4; K3+K4, the voxel-hash query,
+scoring, bit-exact (B=1 and 8 at N=8192 for the cuboid, 32768 for the
+detection service, 24576 for the tracker, and K=1023, B=3 edges; random
+points, and points exactly at +-tau, one ulp past it, -0.0, NaN and +-inf,
+valid and masked), its launch plan printed and held to at least 8 warps
+an SM at the four path shapes; K2, the fused Gauss-Newton ICP system,
+with equal gate counts and M within rtol/atol 1e-4; K3+K4, the voxel-hash query,
 bit-exact below and above 49152 table rows. Then drives the port's
 paths through their entry points, each with the kernels' launch counts
 set to 0 just before it and read just after:
@@ -51,10 +54,12 @@ wrapper's calls (without the wrapper's host cost); beside them its
 bound, the least time the card could take for the same work (f32
 operations at 67 TFLOP/s or bytes at 3.35 TB/s, whichever is longer;
 K3+K4's work is read from the timed call's chunk counts), and the share
-of that bound. ``kernel_times.py`` times the same calls alone. In the SLAM
-phase, torch.profiler over the first frames of keyframe+BA K2 and map
-32768 hash gives the device busy share and K2's and K3+K4's device time
-per frame.
+of that bound; for K1 also its issue-rate floor, 8 instructions a pair
+(3 multiplies, 3 adds, the compare, the count; no FMA) at 128 lanes an
+SM a clock at ``nvidia-smi``'s ``clocks.max.sm``. ``kernel_times.py``
+times the same calls alone. In the SLAM phase, torch.profiler over the
+first frames of keyframe+BA K2 and map 32768 hash gives the device busy
+share and K2's and K3+K4's device time per frame.
 
 Prints the card, each check and the times; then a JSON line of the
 kernels; and last ``{"ok": true, "device": {...}}``. Exits non-zero,
@@ -78,15 +83,15 @@ import numpy as np
 import torch
 
 FRAMES = 8
-KERNEL_SHAPES = [  # (B, N, K, all points masked)
-    (1, 8192, 1024, False),
-    (8, 8192, 1024, False),
-    (1, 32768, 1024, False),   # the detection service's working set
-    (1, 24576, 1024, False),   # the tracker's working set
-    (1, 777, 100, False),
-    (1, 8192, 1024, True),
+K1_TIMED = ((1, 8192), (8, 8192), (1, 32768), (1, 24576))  # the path shapes (B, N) at K=1024
+KERNEL_SHAPES = [  # (B, N, K, inputs): "random", "edges" (k1_edge_inputs) or "all masked"
+    *((b, n, 1024, inputs) for b, n in K1_TIMED for inputs in ("random", "edges")),
+    *((b, n, k, inputs) for b, n, k in ((1, 777, 100), (3, 777, 100), (1, 8192, 1023))
+      for inputs in ("random", "edges")),
+    (1, 8192, 1024, "all masked"),
 ]
-K1_TIMED = ((1, 8192), (8, 8192), (1, 32768), (1, 24576))  # (B, N) at K=1024
+K1_MIN_WARPS_PER_SM = 8  # what K1's launch plan must give each path shape
+K1_INSTRUCTIONS = 8      # a pair: 3 multiplies, 3 adds, the compare, the count (no FMA)
 TAU = 0.015
 KERNELS = ("ransac_score", "icp_gn", "voxelhash_query")
 K2_SHAPES = [  # (R, N, M, all source points masked); the first three are odometry's
@@ -153,6 +158,42 @@ def kernel_inputs(b, n, k, all_masked, device, seed=0):
     d = (rng.randn(b, k, 1) * 0.05).astype(np.float32)
     hyp = np.concatenate([normals, d], axis=-1)
     return tuple(torch.from_numpy(a).to(device) for a in (pts, mask, hyp))
+
+
+def k1_edge_inputs(b, n, k, device, seed=0):
+    """K1 inputs that a scan can get wrong, on top of ``kernel_inputs``:
+    planes x = 0, y = 0 (normal -y), z = tau and z = -tau (normal -z,
+    zeros -0.0), every 8th hypothesis each; points exactly at distance
+    +-tau from them (x or y = +-tau, z = 0, -0.0 or 2 tau), one ulp past
+    tau, with a -0.0 coordinate, or with a NaN or +-inf coordinate,
+    about 1/8 of the points each, masked or not as ``kernel_inputs``
+    draws."""
+    pts, mask, hyp = (t.numpy().copy() for t in kernel_inputs(b, n, k, False, "cpu", seed))
+    rng = np.random.RandomState(seed + 1)
+    tau = np.float32(TAU)
+    hyp[:, 0::8] = [1, 0, 0, 0]
+    hyp[:, 1::8] = [0, -1, 0, 0]
+    hyp[:, 2::8] = [0, 0, 1, -tau]
+    hyp[:, 3::8] = [-0.0, -0.0, -1, tau]
+    kind = rng.randint(0, 8, (b, n))
+    sign = np.where(rng.rand(b, n) < 0.5, np.float32(-1), np.float32(1))
+    axis = rng.randint(0, 3, (b, n))
+    special = rng.choice(np.array([np.nan, np.inf, -np.inf], np.float32), (b, n))
+    sel = {j: kind == j for j in range(6)}
+    pts[..., 0] = np.where(sel[0], sign * tau, pts[..., 0])
+    pts[..., 1] = np.where(sel[1], sign * tau, pts[..., 1])
+    pts[..., 2] = np.where(sel[2], np.where(sign > 0, 2 * tau, np.float32(-0.0)), pts[..., 2])
+    pts[..., 0] = np.where(sel[3], sign * np.nextafter(tau, np.float32(1)), pts[..., 0])
+    for c in range(3):
+        pts[..., c] = np.where(sel[4] & (axis == c), np.float32(-0.0), pts[..., c])
+        pts[..., c] = np.where(sel[5] & (axis == c), special, pts[..., c])
+    return tuple(torch.from_numpy(a).to(device) for a in (pts, mask, hyp))
+
+
+def k1_inputs(b, n, k, inputs, device, seed=0):
+    if inputs == "edges":
+        return k1_edge_inputs(b, n, k, device, seed)
+    return kernel_inputs(b, n, k, inputs == "all masked", device, seed)
 
 
 def cuda_ms(fn, iters):
@@ -248,29 +289,55 @@ def timed(label, kernel, plain, work, plain_iters=10):
 
 
 def check_kernel(device):
-    """K1 against its plain version at every shape; returns max |diff|."""
-    from perception_tpu_torch.ops.kernels.ransac_score import ransac_score, ransac_score_reference
+    """K1 against its plain version at every shape and input, one launch a
+    call; its launch plan at the path shapes, printed and held to at
+    least K1_MIN_WARPS_PER_SM warps an SM. Returns max |diff|."""
+    from perception_tpu_torch.ops.kernels.build import sm_count
+    from perception_tpu_torch.ops.kernels.ransac_score import launch_plan, ransac_score, ransac_score_reference
 
+    sms = sm_count(device.index)
+    for b, n in K1_TIMED:
+        plan = launch_plan(b, n, 1024, sms)
+        print(f"K1 launch plan at B={b} N={n} K=1024 on {sms} SMs: {plan}")
+        require(plan.warps_per_sm >= K1_MIN_WARPS_PER_SM,
+                f"K1 launches under {K1_MIN_WARPS_PER_SM} warps an SM at {(b, n)}")
     worst = 0
-    for b, n, k, all_masked in KERNEL_SHAPES:
-        pts, mask, hyp = kernel_inputs(b, n, k, all_masked, device)
+    for b, n, k, inputs in KERNEL_SHAPES:
+        pts, mask, hyp = k1_inputs(b, n, k, inputs, device)
+        before = ransac_score.launches
         got = ransac_score(pts, mask, hyp, TAU)
         torch.cuda.synchronize()
         want = ransac_score_reference(pts, mask, hyp, TAU)
         diff = int((got - want).abs().max())
-        print(f"K1 ransac_score B={b} N={n} K={k} all_masked={all_masked}: "
-              f"equal={torch.equal(got, want)} max_abs_err={diff} inliers={int(want.sum())}")
-        require(torch.equal(got, want), f"kernel != plain version at {(b, n, k, all_masked)}")
-        require(not all_masked or int(got.abs().sum()) == 0, "all-masked counts not zero")
+        print(f"K1 ransac_score B={b} N={n} K={k} {inputs}: equal={torch.equal(got, want)} "
+              f"max_abs_err={diff} inliers={int(want.sum())}")
+        require(ransac_score.launches == before + 1, "K1: not one launch a call")
+        require(torch.equal(got, want), f"kernel != plain version at {(b, n, k, inputs)}")
+        require(inputs != "all masked" or int(got.abs().sum()) == 0, "all-masked counts not zero")
         worst = max(worst, diff)
     return worst
 
 
+def max_sm_clock_hz():
+    """The card's highest SM clock, ``nvidia-smi --query-gpu=clocks.max.sm``."""
+    out = subprocess.run(["nvidia-smi", "--query-gpu=clocks.max.sm", "--format=csv,noheader,nounits"],
+                         check=True, capture_output=True, text=True, timeout=60).stdout
+    return float(out.strip().splitlines()[0]) * 1e6
+
+
+def k1_floor_ms(b, n, k, sms, clock_hz):
+    """K1's issue-rate floor: K1_INSTRUCTIONS a pair at 128 lanes an SM a clock."""
+    return b * n * k * K1_INSTRUCTIONS / (sms * 128 * clock_hz) * 1e3
+
+
 def time_kernel(device):
     """K1 and its plain version at the paths' shapes (the cuboid at B=1 and
-    B=8, the detection service, the tracker), in ms."""
+    B=8, the detection service, the tracker), in ms, with the issue-rate
+    floor beside the bound."""
+    from perception_tpu_torch.ops.kernels.build import sm_count
     from perception_tpu_torch.ops.kernels.ransac_score import ransac_score, ransac_score_reference
 
+    clock = max_sm_clock_hz()
     times = {}
     for b, n in K1_TIMED:
         pts, mask, hyp = kernel_inputs(b, n, 1024, False, device, seed=1)
@@ -280,6 +347,10 @@ def time_kernel(device):
                               lambda: ransac_score_reference(pts, mask, hyp, TAU),
                               lambda: (9 * b * n * 1024, nbytes(pts, mask, hyp) + 4 * b * 1024),
                               plain_iters=20)
+        floor = k1_floor_ms(b, n, 1024, sm_count(device.index), clock)
+        times[(b, n)]["floor_ms"] = floor
+        print(f"  K1 issue-rate floor at {clock / 1e6:.0f} MHz: {floor:.5f} ms, device share of floor "
+              f"{floor / times[(b, n)]['device_ms']:.3f}")
     return times
 
 
@@ -473,14 +544,18 @@ def run_slice(device):
     # The path, counted: 8 single-frame calls, then one call at B=8.
     reset_launches()
     singles = [one(i) for i in range(FRAMES)]
-    batched = batch()
     torch.cuda.synchronize()
     counts = read_launches()
-    launches = counts["ransac_score"]
-    print(f"cuboid path: {FRAMES} x cuboid_pipeline_from_depth + 1 x cuboid_pipeline_batch(B={FRAMES}): "
-          f"launches {counts}")
-    require(counts == {"ransac_score": FRAMES + 1, "icp_gn": 0, "voxelhash_query": 0},
-            f"expected {FRAMES + 1} K1 launches (one per RANSAC call) and no other kernel")
+    reset_launches()
+    batched = batch()
+    torch.cuda.synchronize()
+    batch_counts = read_launches()
+    launches = (counts["ransac_score"], batch_counts["ransac_score"])
+    print(f"cuboid path: {FRAMES} x cuboid_pipeline_from_depth: launches {counts}; "
+          f"1 x cuboid_pipeline_batch(B={FRAMES}): launches {batch_counts}")
+    require(counts == {"ransac_score": FRAMES, "icp_gn": 0, "voxelhash_query": 0}
+            and batch_counts == {"ransac_score": 1, "icp_gn": 0, "voxelhash_query": 0},
+            "expected one K1 launch per RANSAC call and no other kernel")
 
     stacked = type(batched)(*(torch.stack(t) for t in zip(*singles)))
     for name, res in (("B=1", stacked), (f"B={FRAMES}", batched)):
@@ -534,21 +609,22 @@ def read_launches():
     return {name: w.launches for name, w in wrappers().items()}
 
 
-def slam_scene():
+def slam_scene(frames=SLAM_FRAMES):
     """The SLAM bench's 640x480 camera and the textured room along
-    ``sweep_trajectory(n=300)``, rendered once (frames in parallel; seed =
-    frame index): (camera, gt (300, 4, 4), grays, depths (300, H, W))."""
+    ``sweep_trajectory(n=300)``, its first ``frames`` poses rendered once
+    (frames in parallel; seed = frame index): (camera, gt (frames, 4, 4),
+    grays, depths (frames, H, W))."""
     from perception_tpu_torch.bench.slam_scene import render_textured_room, sweep_trajectory
     from perception_tpu_torch.geometry.camera import PinholeCamera
 
     w, h = 640, 480
     fx = 307.0 * w / 320.0
     camera = PinholeCamera.from_K([fx, 0, w / 2, 0, fx, h / 2, 0, 0, 1], width=w, height=h)
-    gt = sweep_trajectory(n=SLAM_FRAMES)
+    gt = sweep_trajectory(n=SLAM_FRAMES)[:frames]
     with ThreadPoolExecutor(8) as pool:
-        frames = list(pool.map(lambda i: render_textured_room(camera, gt[i], seed=i), range(SLAM_FRAMES)))
-    grays = np.stack([g for g, _ in frames])
-    depths = np.stack([d for _, d in frames])
+        images = list(pool.map(lambda i: render_textured_room(camera, gt[i], seed=i), range(frames)))
+    grays = np.stack([g for g, _ in images])
+    depths = np.stack([d for _, d in images])
     return camera, np.stack(gt), grays, depths
 
 
@@ -1404,7 +1480,7 @@ def main() -> int:
     k2_err = check_k2(device)
     k3_err = check_k3(device)
 
-    cuboid_launches, one, batch = run_slice(device)
+    (cuboid_b1_launches, cuboid_b8_launches), one, batch = run_slice(device)
     t0 = time.perf_counter()
     scene = slam_scene()
     print(f"SLAM scene: {SLAM_FRAMES} frames {scene[0].width}x{scene[0].height}, fx {scene[0].fx:.1f}, "
@@ -1434,8 +1510,11 @@ def main() -> int:
             "launches": launches,
             "max_abs_err": k1_err,
             **json_times(k1_times[bn]),
+            "floor_ms": k1_times[bn]["floor_ms"],
         } for shape, launches, bn in (
-            ("B=1 N=8192 K=1024 (cuboid, every mode)", cuboid_launches + mode_launches, (1, 8192)),
+            ("B=1 N=8192 K=1024 (cuboid, one frame a call)", cuboid_b1_launches, (1, 8192)),
+            ("B=8 N=8192 K=1024 (cuboid batches: default, cc, p2p; with pcl_parity's one B=2 call)",
+             cuboid_b8_launches + mode_launches, (8, 8192)),
             ("B=1 N=32768 K=1024 (detect_object)", obj_launches, (1, 32768)),
             ("B=1 N=24576 K=1024 (tracker)", track_launches, (1, 24576)),
         )),

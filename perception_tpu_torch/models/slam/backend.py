@@ -17,10 +17,15 @@ What differs from the JAX package, and why:
   package's one-hot matmuls). Sums over observations or edges stay
   one-hot matmuls: deterministic on the card with TF32 off, where
   ``index_add_`` adds in atomic order.
-- The dense systems are solved by ``torch.linalg.solve_ex`` (LU with
-  partial pivoting, no wait for the card) in place of the JAX package's
-  unpivoted Gauss-Jordan ``fori_loop``, which would be ~2,000 small
-  launches per pose-graph iteration here.
+- BA's reduced camera system is solved as the JAX package solves it, by
+  unpivoted Gauss-Jordan with a guarded pivot (``_gauss_solve``): in
+  float32 the gauged system can be indefinite, and LU with partial
+  pivoting then meets an exact zero pivot and returns a non-finite step
+  whose cost comes out as 0.0, where the guarded pivot keeps the step
+  finite. Its 6M = 30 steps are ~7 small launches each. The pose graph's
+  ``H + I`` is positive definite, so it keeps ``torch.linalg.solve_ex``
+  (LU, no wait for the card): Gauss-Jordan there would be ~2,000 small
+  launches per iteration.
 - The edge Jacobians are forward-mode derivatives of the edge-batched
   residual along the 12 unit tangents, taken in one pass over a batch of
   12 x E duals (``torch.autograd.forward_ad``); the JAX package vmaps a
@@ -81,13 +86,34 @@ def _inv3(A: torch.Tensor) -> torch.Tensor:
     return co / det[..., None, None]
 
 
-def _solve_gauged(A: torch.Tensor, b: torch.Tensor) -> torch.Tensor:
-    """Solve A x = b (b a vector) with the first 6 unknowns frozen at 0
-    (their rows and columns of A zeroed, their diagonal 1), by
-    ``solve_ex``: no wait for the card."""
+def _gauge(A: torch.Tensor, b: torch.Tensor) -> Tuple[torch.Tensor, torch.Tensor]:
+    """Freeze the first 6 unknowns of A x = b at 0: their rows and columns
+    of A zeroed, their diagonal 1, their entries of b 0."""
     g = torch.arange(A.shape[0], device=A.device) < 6
     A = torch.where(g[:, None] | g[None, :], torch.eye(A.shape[0], device=A.device), A)
-    b = torch.where(g, torch.zeros((), device=b.device), b)
+    return A, torch.where(g, torch.zeros((), device=b.device), b)
+
+
+def _gauss_solve(A: torch.Tensor, b: torch.Tensor) -> torch.Tensor:
+    """Solve A x = b (b a vector) by unpivoted Gauss-Jordan over the
+    (n, n+1) augmented matrix, as the JAX package's ``_gauss_solve``: n
+    sequential steps, each pivot row divided by its pivot, or by 1 where
+    |pivot| <= 1e-20, so the result stays finite. No wait for the card."""
+    n = A.shape[0]
+    M = torch.cat([A, b[:, None]], dim=1)
+    eye = torch.eye(n, dtype=M.dtype, device=M.device)
+    one = torch.ones((), dtype=M.dtype, device=M.device)
+    for k in range(n):
+        piv = M[k, k]
+        row = M[k] / torch.where(torch.abs(piv) > 1e-20, piv, one)
+        M = M - (M[:, k] - eye[k])[:, None] * row[None, :]
+    return M[:, n]
+
+
+def _solve_gauged(A: torch.Tensor, b: torch.Tensor) -> torch.Tensor:
+    """Solve the gauged A x = b by ``solve_ex`` (LU with partial pivoting,
+    no wait for the card), for positive definite A."""
+    A, b = _gauge(A, b)
     return torch.linalg.solve_ex(A, b[:, None])[0][:, 0]
 
 
@@ -181,7 +207,7 @@ def ba_schur_solve(Hpp, Hll, U, bp, bl, lam, M: int, L: int):
     rhs = bp - torch.einsum("lkad,ld->ka", UH, bl)
 
     # Gauge: freeze pose 0.
-    dxi = _solve_gauged(S.reshape(6 * M, 6 * M), rhs.reshape(6 * M)).reshape(M, 6)
+    dxi = _gauss_solve(*_gauge(S.reshape(6 * M, 6 * M), rhs.reshape(6 * M))).reshape(M, 6)
     dX = torch.einsum("lcd,ld->lc", Hll_inv, bl - torch.einsum("lkdc,kd->lc", U, dxi))
     dX = torch.where(seen[:, None], dX, torch.zeros((), device=dev))
     return dxi, dX, seen

@@ -8,21 +8,52 @@ plane hypotheses against the N points of each of B frames:
 ``ransac_score`` launches ``csrc/ransac_score.cu`` for CUDA tensors and
 takes ``ransac_score_reference`` only for CPU tensors. Both round every
 multiply and add separately, in the same order, so their counts are
-bit-identical.
+bit-identical. ``launch_plan`` splits the points over blocks from the
+shapes and the SM count alone.
 """
 
 from __future__ import annotations
 
 import ctypes
 import functools
+from typing import NamedTuple
 
 import torch
 
-from perception_tpu_torch.ops.kernels.build import load_library
+from perception_tpu_torch.ops.kernels.build import load_library, sm_count
 
 # Bounds the plain version's (B, chunk, K) temporaries; integer sums
 # make the chunking invisible in the result.
 _REF_CHUNK = 2048
+
+# The kernel's compile-time tiling (csrc/ransac_score.cu); the launch
+# passes them, and the kernel refuses a plan made for another build.
+CHUNK = 256            # points staged per chunk, one per thread
+HYPS_PER_BLOCK = 128   # 4 a lane, shared by the block's warps
+WARPS = 8              # warps per block
+BLOCKS_PER_SM = 4      # blocks the plan aims for on each SM
+MAX_SPLIT_CHUNKS = (1 << 24) // CHUNK  # a lane's float32 counts are exact to 2^24
+
+
+class LaunchPlan(NamedTuple):
+    hyp_blocks: int    # blocks along K, HYPS_PER_BLOCK hypotheses each
+    splits: int        # blocks along N per frame
+    split_chunks: int  # CHUNK-point chunks per split (the last split may hold fewer)
+    blocks: int        # hyp_blocks * splits * B
+    warps_per_sm: float
+
+
+def launch_plan(B: int, N: int, K: int, sms: int) -> LaunchPlan:
+    """Split each frame's points into ``splits`` runs of ``split_chunks``
+    chunks so that the grid has about ``BLOCKS_PER_SM * sms`` blocks, or
+    one block per chunk where the frames hold fewer; no split is empty."""
+    hyp_blocks = -(-K // HYPS_PER_BLOCK)
+    chunks = max(1, -(-N // CHUNK))
+    want = -(-BLOCKS_PER_SM * sms // max(hyp_blocks * B, 1))
+    split_chunks = min(-(-chunks // want), MAX_SPLIT_CHUNKS)
+    splits = -(-chunks // split_chunks)
+    blocks = hyp_blocks * splits * B
+    return LaunchPlan(hyp_blocks, splits, split_chunks, blocks, blocks * WARPS / sms)
 
 
 def ransac_score_reference(
@@ -45,6 +76,7 @@ def _launcher():
     fn.argtypes = [
         ctypes.c_void_p, ctypes.c_void_p, ctypes.c_void_p,
         ctypes.c_int, ctypes.c_int, ctypes.c_int, ctypes.c_float,
+        ctypes.c_int, ctypes.c_int, ctypes.c_int, ctypes.c_int,
         ctypes.c_void_p, ctypes.c_void_p,
     ]
     fn.restype = ctypes.c_int
@@ -90,10 +122,11 @@ def ransac_score(
     if B == 0 or N == 0 or K == 0:
         return out
     launch = _launcher()
+    plan = launch_plan(B, N, K, sm_count(points.device.index))
     with torch.cuda.device(points.device):
         stream = torch.cuda.current_stream(points.device).cuda_stream
-        err = launch(points.data_ptr(), mask.data_ptr(), hyp.data_ptr(),
-                     B, N, K, threshold, out.data_ptr(), stream)
+        err = launch(points.data_ptr(), mask.data_ptr(), hyp.data_ptr(), B, N, K, threshold,
+                     CHUNK, HYPS_PER_BLOCK, plan.split_chunks, plan.splits, out.data_ptr(), stream)
     if err:
         raise RuntimeError(f"ransac_score kernel launch failed: CUDA error {err}")
     ransac_score.launches += 1

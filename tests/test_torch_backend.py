@@ -2,15 +2,27 @@
 JAX package, on ``make_ba_problem`` and ``make_loop_graph`` of
 ``test_backend.py``.
 
-The port solves the dense systems by LU with partial pivoting
-(``solve_ex``) where the JAX package runs an unpivoted Gauss-Jordan, and
-adds its segment sums in another order. Tolerances, as measured:
+The port solves BA's reduced camera system by the JAX package's
+unpivoted Gauss-Jordan with a guarded pivot (``_gauss_solve``) and the
+pose graph by LU with partial pivoting (``solve_ex``), and adds its
+segment sums in another order. Tolerances, as measured:
 
+- ``_gauss_solve`` against the JAX package's on a gauged 30 x 30 system
+  (6 x ``ba_window``): damped SPD, solutions within 4.6e-6 of max |x|;
+  with an exact zero pivot (an unobserved pose at lam = 0), within
+  3.7e-6, finite. Held to 5e-5 of max |x| (the jitted side contracts
+  into FMAs). ``ba_schur_solve`` on BA blocks giving those systems: dxi
+  and dX within 1.2e-5 of their max |.| (held to 1e-4), finite; LU with
+  partial pivoting returns a non-finite step on the zero-pivot system.
+- ``bundle_adjust`` on the problem of the first BA run of the port's
+  ``run_slam`` over 12 frames of the 160 x 120 sweep in map mode (built
+  at 8 torch threads, where LU met an exact zero pivot in the first
+  iteration and the non-finite step was accepted at a cost of 0.0): at 8
+  and at 1 thread, poses and landmarks finite and the final cost within
+  rtol 2e-6 of the JAX package's 0.171108, held to rtol 1e-4.
 - ``bundle_adjust`` with the depth residual pinning the scale gauge (as
   the SLAM system runs it): poses within 3.1e-6, landmarks 9.6e-7, costs
-  rtol 5.4e-6; held to atol 2e-5 and rtol 1e-4. Swapping the port's LU
-  for a Gauss-Jordan like the JAX package's changes these by less than
-  1e-5: the solver is not what differs.
+  rtol 5.4e-6; held to atol 2e-5 and rtol 1e-4.
 - ``bundle_adjust`` on pure reprojection: the scale gauge is free, so
   rounding slides the solution along it: poses within 2.1e-4 and
   landmarks 9.1e-4 after 12 iterations (held to 1e-3 and 5e-3), costs
@@ -113,3 +125,119 @@ def test_optimize_pose_graph_matches_jax(kw, iterations):
 def test_inv3_inverts():
     A = torch.from_numpy(np.random.RandomState(0).randn(10, 3, 3).astype(np.float32)) + 3 * torch.eye(3)
     np.testing.assert_allclose((tb._inv3(A) @ A).numpy(), np.broadcast_to(np.eye(3), (10, 3, 3)), atol=1e-5)
+
+
+def ba_system_blocks(seed, unobserved=None, M=5, L=40, O=400):
+    """BA normal-equation blocks summed from random per-observation
+    Jacobians (each observation touches one pose and one landmark), as
+    ``ba_blocks`` builds them. Pose ``unobserved`` gets no observation."""
+    rng = np.random.RandomState(seed)
+    poses = rng.randint(0, M, O)
+    if unobserved is not None:
+        poses[poses == unobserved] = (unobserved + 1) % M
+    lms = rng.randint(0, L, O)
+    Jp = rng.randn(O, 2, 6).astype(np.float32)
+    Jl = rng.randn(O, 2, 3).astype(np.float32)
+    r = rng.randn(O, 2).astype(np.float32)
+    Hpp, Hll = np.zeros((M, 6, 6), np.float32), np.zeros((L, 3, 3), np.float32)
+    U = np.zeros((L, M, 6, 3), np.float32)
+    bp, bl = np.zeros((M, 6), np.float32), np.zeros((L, 3), np.float32)
+    for o in range(O):
+        m, l = poses[o], lms[o]
+        Hpp[m] += Jp[o].T @ Jp[o]
+        Hll[l] += Jl[o].T @ Jl[o]
+        U[l, m] += Jp[o].T @ Jl[o]
+        bp[m] -= Jp[o].T @ r[o]
+        bl[l] -= Jl[o].T @ r[o]
+    return Hpp, Hll, U, bp, bl
+
+
+def reduced_system(case):
+    """The gauged reduced camera system (S, rhs), 30 x 30, of
+    ``ba_system_blocks``: damped (lam 1e-3) and SPD, or at lam 0 with pose
+    2 unobserved, whose rows and columns of S are then exactly zero."""
+    unobserved, lam = (2, 0.0) if case == "zero pivot" else (None, 1e-3)
+    Hpp, Hll, U, bp, bl = (torch.from_numpy(a) for a in ba_system_blocks(0, unobserved))
+    M, L = Hpp.shape[0], Hll.shape[0]
+    Hinv = torch.linalg.inv(Hll + lam * torch.eye(3))
+    S = torch.zeros(M, 6, M, 6)
+    for m in range(M):
+        S[m, :, m] = Hpp[m] + lam * torch.eye(6)
+    S -= torch.einsum("lkac,lcd,lmbd->kamb", U, Hinv, U)
+    rhs = bp - torch.einsum("lkac,lcd,ld->ka", U, Hinv, bl)
+    return tb._gauge(S.reshape(6 * M, 6 * M), rhs.reshape(6 * M))
+
+
+@pytest.mark.parametrize("case", ["damped spd", "zero pivot"])
+def test_gauss_solve_matches_jax(case):
+    A, b = reduced_system(case)
+    if case == "zero pivot":
+        assert not A[12:18].any() and not A[:, 12:18].any()
+    got = tb._gauss_solve(A, b).numpy()
+    want = np.asarray(jb._gauss_solve(jnp.asarray(A.numpy()), jnp.asarray(b.numpy())))
+    assert np.isfinite(got).all() and np.isfinite(want).all()
+    np.testing.assert_allclose(got, want, rtol=0, atol=5e-5 * np.abs(want).max())
+
+
+@pytest.mark.parametrize("case", ["damped spd", "zero pivot"])
+def test_ba_schur_solve_matches_jax(case):
+    unobserved, lam = (2, 0.0) if case == "zero pivot" else (None, 1e-3)
+    blocks = ba_system_blocks(1, unobserved)
+    M, L = blocks[0].shape[0], blocks[1].shape[0]
+    want = jb.ba_schur_solve(*(jnp.asarray(a) for a in blocks), lam, M, L)
+    got = tb.ba_schur_solve(*(torch.from_numpy(a) for a in blocks), torch.tensor(lam), M, L)
+    for g, w in zip(got[:2], want[:2]):
+        g, w = g.numpy(), np.asarray(w)
+        assert np.isfinite(g).all() and np.isfinite(w).all()
+        np.testing.assert_allclose(g, w, rtol=0, atol=1e-4 * np.abs(w).max())
+    np.testing.assert_array_equal(got[2].numpy(), np.asarray(want[2]))
+
+
+@pytest.fixture(scope="module")
+def recipe_ba_problem():
+    """The problem of the first BA run of the port's run_slam over 12
+    frames of the 160 x 120 sweep (fx = fy = 153.5) in map mode
+    (chip_smoke's "slam map 32768 hash"), built at 8 torch threads."""
+    from chip_smoke import slam_configs
+    from perception_tpu_torch.bench.slam_scene import render_textured_room, sweep_trajectory
+    from perception_tpu_torch.geometry.camera import PinholeCamera
+    from perception_tpu_torch.models.slam import system
+
+    cam = PinholeCamera.from_K([153.5, 0, 80, 0, 153.5, 60, 0, 0, 1], width=160, height=120)
+    gt = sweep_trajectory(n=60)
+    frames = [render_textured_room(cam, gt[i], seed=i) for i in range(12)]
+    grays = torch.from_numpy(np.stack([g for g, _ in frames]))
+    depths = torch.from_numpy(np.stack([d for _, d in frames]))
+    calls, real = [], system.bundle_adjust
+
+    def record(problem, *args, **kwargs):
+        calls.append((problem, args, kwargs))
+        return real(problem, *args, **kwargs)
+
+    threads = torch.get_num_threads()
+    torch.set_num_threads(8)
+    system.bundle_adjust = record
+    try:
+        system.run_slam(cam, depths, grays, slam_configs()["slam map 32768 hash"])
+    finally:
+        system.bundle_adjust = real
+        torch.set_num_threads(threads)
+    assert calls, "no BA run in the first 12 frames"
+    return calls[0]
+
+
+@pytest.mark.parametrize("threads", [8, 1])
+def test_bundle_adjust_stays_finite_on_the_map_mode_problem(recipe_ba_problem, threads):
+    problem, args, kwargs = recipe_ba_problem
+    assert all(x is None or bool(torch.isfinite(x.float()).all()) for x in problem)
+    want = jb.bundle_adjust(jb.BAProblem(*(None if x is None else jnp.asarray(x.numpy()) for x in problem)),
+                            *args, **kwargs)
+    saved = torch.get_num_threads()
+    torch.set_num_threads(threads)
+    try:
+        got = tb.bundle_adjust(problem, *args, **kwargs)
+    finally:
+        torch.set_num_threads(saved)
+    assert bool(torch.isfinite(got.poses_wc).all()) and bool(torch.isfinite(got.landmarks).all())
+    np.testing.assert_allclose(float(got.final_cost), float(want.final_cost), rtol=1e-4)
+    assert float(got.final_cost) < float(got.initial_cost)

@@ -7,7 +7,11 @@ the card is, which has no JAX; the tests' conftest imports jax, so run it
 there with ``--noconftest`` (see README.md).
 
 Tolerances: the kernel's counts equal the plain version's exactly (both
-round each multiply and add separately). Pipeline on the card against
+round each multiply and add separately), at K1's four path shapes and at
+K=1023, B=3 and N=777, on random points and on ``chip_smoke``'s edge
+inputs (points exactly at +-tau, one ulp past, -0.0, NaN and +-inf, valid
+and masked), one launch a call; every (point, hypothesis) pair of a launch
+plan is scored once, whatever the plan's splits. Pipeline on the card against
 the CPU with the same RANSAC triplets: same acceptance, translation
 within 1 mm, fitness within rtol 5e-2 — CUDA's ``index_add_`` adds with
 atomics, so a voxel centroid may move by an ulp and one point may cross
@@ -78,7 +82,11 @@ def random_case(seed, b, n, k):
     return pts, mask, hyp
 
 
-@pytest.mark.parametrize("b,n,k", [(1, 8192, 1024), (1, 32768, 1024), (2, 777, 100), (3, 1, 1)])
+K1_SHAPES = [(1, 8192, 1024), (8, 8192, 1024), (1, 32768, 1024), (1, 24576, 1024),
+             (3, 777, 100), (1, 8192, 1023), (2, 777, 100), (3, 1, 1)]
+
+
+@pytest.mark.parametrize("b,n,k", K1_SHAPES)
 def test_cuda_kernel_matches_plain_version(cuda_device, b, n, k):
     pts, mask, hyp = (torch.from_numpy(a).to(cuda_device) for a in random_case(b, b, n, k))
     before = ransac_score.launches
@@ -86,6 +94,32 @@ def test_cuda_kernel_matches_plain_version(cuda_device, b, n, k):
     torch.cuda.synchronize()
     assert ransac_score.launches == before + 1
     assert torch.equal(got, ransac_score_reference(pts, mask, hyp, 0.05))
+
+
+@pytest.mark.parametrize("b,n,k", K1_SHAPES[:6])
+def test_cuda_kernel_matches_plain_version_on_edge_inputs(cuda_device, b, n, k):
+    from chip_smoke import TAU, k1_edge_inputs
+
+    pts, mask, hyp = k1_edge_inputs(b, n, k, cuda_device, seed=b + n + k)
+    before = ransac_score.launches
+    got = ransac_score(pts, mask, hyp, TAU)
+    torch.cuda.synchronize()
+    assert ransac_score.launches == before + 1
+    assert torch.equal(got, ransac_score_reference(pts, mask, hyp, TAU))
+
+
+@pytest.mark.parametrize("sms", [1, 16, 132])
+def test_cuda_kernel_is_the_same_under_any_plan(cuda_device, monkeypatch, sms):
+    """The plan's splits (from 1 to one per chunk) change no count, and an
+    all-masked frame scores 0."""
+    from perception_tpu_torch.ops.kernels import ransac_score as k1
+
+    pts, mask, hyp = (torch.from_numpy(a).to(cuda_device) for a in random_case(9, 3, 4000, 300))
+    mask[1] = False
+    monkeypatch.setattr(k1, "sm_count", lambda index: sms)
+    got = ransac_score(pts, mask, hyp, 0.05)
+    assert torch.equal(got, ransac_score_reference(pts, mask, hyp, 0.05))
+    assert not got[1].any()
 
 
 def test_cuda_kernel_rejects_what_it_cannot_take(cuda_device):

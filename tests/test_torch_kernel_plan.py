@@ -1,6 +1,13 @@
-"""The launch plans of the port's K2 (``ops/kernels/icp_gn.launch_plan``)
-and K3+K4 (``ops/kernels/voxelhash_query.launch_plan``) kernels, on the
-CPU with an H100's 132 SMs passed in.
+"""The launch plans of the port's K1 (``ops/kernels/ransac_score.launch_plan``),
+K2 (``ops/kernels/icp_gn.launch_plan``) and K3+K4
+(``ops/kernels/voxelhash_query.launch_plan``) kernels, on the CPU with an
+H100's 132 SMs passed in.
+
+K1's plan splits each frame's points over blocks of 128 hypotheses: the
+tests check that its blocks score every (point, hypothesis) pair exactly
+once at the four path shapes (B=1 and 8 at N=8192, N=32768, N=24576, all
+at K=1024) and at (3, 777, 100) and (1, 8192, 1023), and that each path
+shape puts at least 8 warps on each SM.
 
 Each plan splits a scan over blocks: K2 the target axis, K3+K4 each query
 tile's window of table rows. The tests check that every target row or
@@ -17,11 +24,54 @@ import torch
 
 from perception_tpu_torch.ops import voxelhash
 from perception_tpu_torch.ops.kernels import icp_gn
+from perception_tpu_torch.ops.kernels import ransac_score as k1
 from perception_tpu_torch.ops.kernels import voxelhash_query as vq
 
 SMS = 132  # an H100 SXM
 
 torch.set_num_threads(2)
+
+
+K1_PATH_SHAPES = [(1, 8192, 1024), (8, 8192, 1024), (1, 32768, 1024), (1, 24576, 1024)]
+
+
+def k1_tiles(plan, B, N, K):
+    """(frame, points, hypotheses) of each block of K1's grid (hypothesis
+    block, split, frame), as csrc/ransac_score.cu indexes them."""
+    for b in range(B):
+        for s in range(plan.splits):
+            pts = range(s * plan.split_chunks * k1.CHUNK, min((s + 1) * plan.split_chunks * k1.CHUNK, N))
+            for h in range(plan.hyp_blocks):
+                yield b, pts, range(h * k1.HYPS_PER_BLOCK, min((h + 1) * k1.HYPS_PER_BLOCK, K))
+
+
+@pytest.mark.parametrize("B,N,K", K1_PATH_SHAPES + [(3, 777, 100), (1, 8192, 1023)])
+def test_k1_plan_scores_every_pair_once(B, N, K):
+    plan = k1.launch_plan(B, N, K, SMS)
+    seen = np.zeros((B, N, K), np.int32)
+    tiles = list(k1_tiles(plan, B, N, K))
+    assert len(tiles) == plan.blocks == plan.hyp_blocks * plan.splits * B
+    for b, pts, hyps in tiles:
+        assert len(pts) > 0 and len(hyps) > 0  # no empty block
+        assert len(pts) <= plan.split_chunks * k1.CHUNK and len(hyps) <= k1.HYPS_PER_BLOCK
+        seen[b, pts.start:pts.stop, hyps.start:hyps.stop] += 1
+    assert (seen == 1).all()
+
+
+@pytest.mark.parametrize("B,N,K", K1_PATH_SHAPES)
+def test_k1_plan_fills_the_card_at_the_path_shapes(B, N, K):
+    plan = k1.launch_plan(B, N, K, SMS)
+    assert plan.warps_per_sm == plan.blocks * k1.WARPS / SMS >= 8
+    # All resident at once: the kernel's launch bounds allow 4 blocks an SM.
+    assert plan.blocks <= 4 * SMS
+
+
+def test_k1_plan_takes_one_split_on_a_one_sm_card():
+    plan = k1.launch_plan(1, 8192, 1024, 1)
+    assert plan.splits == 1 and plan.split_chunks == 8192 // k1.CHUNK
+    # A split never holds more points than a lane's float32 count keeps exact.
+    plan = k1.launch_plan(1, 1 << 25, 1024, 1)
+    assert plan.split_chunks * k1.CHUNK == 1 << 24 and plan.splits == 2
 
 
 def k2_ranges(plan, Mp):

@@ -3,8 +3,10 @@
 On the CPU the wrapper takes its plain version, which must count exactly
 what the Pallas kernel (interpret mode) and the jnp oracle count: the
 counts are integers, and both sides round every multiply and add in
-float32, so no tolerance is allowed. The kernel itself is held against
-the plain version on the card in ``test_torch_cuda.py``.
+float32, so no tolerance is allowed, also on ``chip_smoke``'s edge
+inputs: points exactly at +-tau from axis-aligned planes, one ulp past
+it, -0.0, NaN and +-inf coordinates, valid and masked. The kernel itself
+is held against the plain version on the card in ``test_torch_cuda.py``.
 """
 
 import jax.numpy as jnp
@@ -84,6 +86,28 @@ def test_batch_of_two_matches_pallas_per_frame():
             jnp.asarray(p), jnp.asarray(m), jnp.asarray(nrm), jnp.asarray(d), 0.07,
         )
         np.testing.assert_array_equal(got[b].numpy(), np.asarray(pallas).astype(np.int32))
+
+
+@pytest.mark.parametrize("b,n,k", [(1, 777, 100), (3, 777, 100), (1, 8192, 1023)])
+def test_reference_matches_pallas_on_edge_inputs(b, n, k):
+    from chip_smoke import TAU, k1_edge_inputs
+
+    pts, mask, hyp = k1_edge_inputs(b, n, k, "cpu", seed=b + n + k)
+    got = ransac_score(pts, mask, hyp, TAU)
+    p, m, h = pts.numpy(), mask.numpy(), hyp.numpy()
+    tau = np.float32(TAU)
+    # The inputs hold what they promise: ties at +-tau, valid and masked
+    # NaN and +-inf points, -0.0.
+    assert (m & (np.abs(p[..., 0]) == tau)).any() and (~m & (np.abs(p[..., 0]) == tau)).any()
+    for bad in (np.isnan(p).any(-1), np.isposinf(p).any(-1), np.isneginf(p).any(-1)):
+        assert (m & bad).any() and (~m & bad).any()
+    assert (np.signbit(p) & (p == 0)).any()
+    # Plane x = 0 counts the valid points with |x| <= tau, ties included.
+    assert (got[:, 0].numpy() == (m & (np.abs(p[..., 0]) <= tau) & np.isfinite(p).all(-1)).sum(-1)).all()
+    for f in range(b):
+        pallas = ransac_score_pallas(jnp.asarray(p[f]), jnp.asarray(m[f]), jnp.asarray(h[f, :, :3]),
+                                     jnp.asarray(h[f, :, 3]), TAU)
+        np.testing.assert_array_equal(got[f].numpy(), np.asarray(pallas).astype(np.int32))
 
 
 def test_cpu_dispatch_takes_the_plain_version_and_counts_no_launch():
