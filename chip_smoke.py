@@ -45,7 +45,21 @@ set to 0 just before it and read just after:
   ``benchmarks/tracking_bench.py``'s setting (300 frames at 640x480, three
   cuboids): frames/s, median and p90 error, latched and warm shares,
   gated; the card against the CPU over the first frames; one host read of
-  ``steady`` a frame.
+  ``steady`` a frame;
+- the pose and hand path of the CNN facade, which runs none of the three
+  kernels (its CNN is cuDNN, its decode PyTorch): the repo's trained tiny
+  MPI_15 PoseNet through ``extract_people`` on 8 seeded scenes at 128x128
+  in one batch (PCK and recall equal to the CPU's and at the JAX
+  package's gate of 0.75 and 0.9), the trained hand net on 8 noisy hand
+  scenes (mean landmark error under 3 px in 7 of 8), and the facade's
+  pose -> hand chain on one frame, each on the card against the CPU and
+  with no host sync; ``PoseNet()`` at full width (BODY_25, 3 stages) at
+  368x368 (``benchmarks/pose_bench.py``'s setting) with seeded weights:
+  maps and the decode of the card's maps on the card against the CPU, one
+  480x640 frame through the antialiased downsample; ``extract_people`` ms
+  a frame at B=1 and B=8, the CNN alone against its bound (f32 operations
+  at 67 TFLOP/s), ``resize_and_merge`` and ``nms_heatmap`` at the
+  reference's stage shapes, the decode's stages, the device busy share.
 
 Each kernel is timed at its path's shapes against its plain version, in
 turns (plain, kernel, kernel, plain): the kernel's eager wrapper call by
@@ -61,8 +75,8 @@ times the same calls alone. In the SLAM phase, torch.profiler over the
 first frames of keyframe+BA K2 and map 32768 hash gives the device busy
 share and K2's and K3+K4's device time per frame.
 
-Prints the card, each check and the times; then a JSON line of the
-kernels; and last ``{"ok": true, "device": {...}}``. Exits non-zero,
+Prints the card, each check and the times, the run's wall time; then a
+JSON line of the kernels; and last ``{"ok": true, "device": {...}}``. Exits non-zero,
 without that line, when there is no card or any check fails.
 
 Run from the repository root: ``python3 chip_smoke.py``
@@ -139,6 +153,23 @@ PARITY_FRAMES = 2        # bench frames through CuboidConfig.pcl_parity()
 # point ICP has not converged in 20 iterations on frames 3 and 5-7, so the
 # p2p gate is 2 cm or, where the reference misses that, its error + 1 mm.
 P2P_JAX_ERROR_MM = (6.40, 7.60, 4.51, 11.68, 5.63, 18.64, 27.48, 19.82)
+POSE_SEED = 1234         # the fixture scenes: the first POSE_SCENES of numpy's default_rng(POSE_SEED)
+POSE_SCENES = 8
+# The JAX package's (PCK, recall) on those scenes (pck_on_images on the
+# CPU; tests/test_torch_pose.py holds the port and the JAX package to
+# them). Both are above the JAX package's gate of 0.75 and 0.9.
+POSE_JAX_PCK = (0.7911111111111111, 1.0)
+HAND_SEED = 11           # the hand scenes: the first HAND_SCENES of default_rng(HAND_SEED)
+HAND_SCENES = 8
+POSE_KP_TOL = 1e-3       # px: keypoints on the card against the CPU on the same maps or weights
+POSE_SCORE_TOL = 1e-4    # person scores (mean limb scores), likewise
+HAND_TOL = 1e-3          # px: hand landmarks, card against CPU
+CHAIN_TOL = 1e-2         # px: pose -> hand landmarks, card against CPU (boxes move with the keypoints)
+WIDE_MAP_RTOL = 1e-4     # full-width maps, card against CPU: max abs diff over the maps' max magnitude
+WIDE_HW = (368, 368)     # pose_bench.py's net resolution, the reference's own
+WIDE_BATCH = 8           # pose_bench.py's batch
+TIMED_REPS = 3           # timed runs (median, with the spread), each of TIMED_CALLS calls after a warm-up
+TIMED_CALLS = 5
 PEAK_F32_OPS = 67e12     # H100 SXM, f32 outside the tensor cores (NVIDIA's data sheet)
 PEAK_BYTES = 3.35e12     # H100 SXM HBM3
 
@@ -1439,6 +1470,235 @@ def run_tracker(device):
     return counts["ransac_score"]
 
 
+def posenet_ops(net, x):
+    """f32 operations of one forward of ``net`` on ``x``, per frame: 2 per
+    multiply-add of each convolution (biases, ReLUs and pools are left
+    out), from each conv's output shape on this input."""
+    ops = []
+
+    def hook(module, inputs, out):
+        k = module.weight
+        ops.append(2 * out[0].numel() * k.shape[1] * k.shape[2] * k.shape[3])
+
+    handles = [m.register_forward_hook(hook) for m in net.modules() if isinstance(m, torch.nn.Conv2d)]
+    try:
+        with torch.no_grad():
+            net(x[:1])
+    finally:
+        for h in handles:
+            h.remove()
+    return sum(ops)
+
+
+def event_ms(fn, reps=TIMED_REPS, calls=TIMED_CALLS):
+    """(median, min, max) ms of one ``fn()`` over ``reps`` runs of ``calls``
+    calls each, by CUDA events, after a warm-up."""
+    fn()
+    torch.cuda.synchronize()
+    runs = []
+    for _ in range(reps):
+        start, stop = torch.cuda.Event(enable_timing=True), torch.cuda.Event(enable_timing=True)
+        start.record()
+        for _ in range(calls):
+            fn()
+        stop.record()
+        torch.cuda.synchronize()
+        runs.append(start.elapsed_time(stop) / calls)
+    return statistics.median(runs), min(runs), max(runs)
+
+
+def fmt_ms(t, per=1):
+    return f"{t[0] / per:.4f} ms (runs {t[1] / per:.4f}-{t[2] / per:.4f})"
+
+
+def compare_people(label, got, want, kp_tol=POSE_KP_TOL, score_tol=POSE_SCORE_TOL):
+    """Hold People ``got`` (any device) to ``want`` (CPU): the same people,
+    part counts and present parts, keypoints within ``kp_tol`` px."""
+    got = type(got)(*(t.cpu() for t in got))
+    same = (torch.equal(got.mask, want.mask) and torch.equal(got.num_parts, want.num_parts)
+            and torch.equal(got.keypoints[..., 2] > 0, want.keypoints[..., 2] > 0))
+    kp = float((got.keypoints - want.keypoints).abs().max())
+    sc = float((got.score - want.score).abs().max())
+    print(f"{label}: people {int(want.mask.sum())}, same people, parts and peaks {same}, keypoints max diff "
+          f"{kp:.3e} px, scores max diff {sc:.3e}")
+    require(same and kp <= kp_tol and sc <= score_tol,
+            f"{label}: card and CPU disagree beyond {kp_tol} px / {score_tol}")
+
+
+def run_pose(device):
+    """The pose and hand path of the CNN facade.
+
+    1. The trained fixtures: the tiny MPI_15 PoseNet on POSE_SCENES seeded
+       scenes at 128x128 in one batched ``extract_people`` (PCK and recall
+       on the card equal to the CPU's and at the JAX package's gate, 0.75
+       and 0.9; its own values are POSE_JAX_PCK), the hand net on
+       HAND_SCENES noisy scenes (mean landmark error < 3 px in all but
+       one), and the facade's pose -> hand chain on one frame; card
+       against CPU each; host syncs of the chain held to none.
+    2. Full width: ``PoseNet()`` at its defaults (BODY_25; backbone
+       32/64/128; 3 stages of width 96, depth 4) with ``init_posenet``'s
+       seeded weights at 368x368: maps card against CPU, the decode of the
+       card's maps on the card against the CPU, and one 480x640 frame
+       (the antialiased downsample).
+    3. Times by CUDA events: ``extract_people`` a frame at B=1 and B=8,
+       the CNN alone, ``resize_and_merge`` (26, 46, 46) -> 368x368,
+       ``nms_heatmap`` (25, 368, 368) at K=32, the decode's stages, the
+       device busy share by torch.profiler, and the CNN's bound (f32
+       operations at 67 TFLOP/s).
+    """
+    import copy
+
+    from perception_tpu_torch.models import hand_fixture as HF
+    from perception_tpu_torch.models import pose, pose_fixture as PF
+    from perception_tpu_torch.models.hand_data import hand_box
+    from perception_tpu_torch.ops.heatmap import nms_heatmap, resize_and_merge
+    from perception_tpu_torch.ops.resize import resize
+    from perception_tpu_torch.utils.keypoints import keep_top_n_people
+
+    t_phase = time.perf_counter()
+    cpu = torch.device("cpu")
+    nets = {d: PF.load_fixture(d) for d in (device, cpu)}
+    hands = {d: HF.load_fixture(d) for d in (device, cpu)}
+
+    # 1a. Pose fixture: PCK on the card and the CPU, one batched call each.
+    scenes, images = PF.sample_scenes(np.random.default_rng(POSE_SEED), POSE_SCENES)
+    x = {d: torch.from_numpy(images).to(d) for d in (device, cpu)}
+    torch.cuda.synchronize()
+    reset_launches()
+    with recorded_syncs() as sites:
+        card = PF.extract_fixture_people(nets[device], x[device])
+    torch.cuda.synchronize()
+    counts = read_launches()
+    require_syncs(f"pose fixture extract_people (B={POSE_SCENES})", sites, {})
+    print(f"pose path launches of K1-K4 (none on this path: its CNN is cuDNN, its decode PyTorch): {counts}")
+    require(not any(counts.values()), "a K1-K4 kernel ran on the pose path")
+    host = PF.extract_fixture_people(nets[cpu], x[cpu])
+    compare_people(f"pose fixture {PF.FIXTURE_HW} B={POSE_SCENES} cuda vs cpu", card, host)
+    pck = {d: PF.pck_of_people(p.keypoints.cpu().numpy(), p.mask.cpu().numpy(), scenes)
+           for d, p in ((device, card), (cpu, host))}
+    print(f"pose fixture PCK, recall on {POSE_SCENES} scenes (seed {POSE_SEED}): cuda {pck[device]}, cpu {pck[cpu]}, "
+          f"JAX package {POSE_JAX_PCK}; gate 0.75, 0.9")
+    require(pck[device] == pck[cpu], "pose fixture: PCK on the card differs from the CPU's")
+    require(pck[device][0] >= 0.75 and pck[device][1] >= 0.9, "pose fixture: PCK / recall under the gate")
+
+    # 1b. Hand fixture: landmark error per scene, card against CPU.
+    errs, diffs = [], []
+    for scene, img in HF.sample_scenes(np.random.default_rng(HAND_SEED), HAND_SCENES):
+        box = torch.from_numpy(hand_box(scene.joints))
+        out = {d: HF.extract_hand_tiny(hands[d], torch.from_numpy(img).to(d), box.to(d)) for d in (device, cpu)}
+        uv, m = out[device][0].cpu(), out[device][1].cpu()
+        require(torch.equal(m, out[cpu][1]), "hand fixture: landmark masks differ between card and CPU")
+        diffs.append(float((uv - out[cpu][0]).abs().max()))
+        errs.append(float(np.linalg.norm(uv.numpy() - scene.joints, axis=-1)[m.numpy()].mean()))
+    print(f"hand fixture: mean landmark error per scene {[round(e, 3) for e in errs]} px (gate < 3 px in "
+          f"{HAND_SCENES - 1} of {HAND_SCENES}); cuda vs cpu max diff {max(diffs):.3e} px")
+    require(sum(e < 3.0 for e in errs) >= HAND_SCENES - 1, "hand fixture: landmark error gate missed")
+    require(max(diffs) <= HAND_TOL, "hand fixture: card and CPU landmarks differ")
+
+    # 1c. The facade's pose -> hand chain on one fixture frame (top 2 people).
+    def chain(d):
+        img = x[d][0]
+        ppl = PF.extract_fixture_people(nets[d], img)
+        kp, _, m = keep_top_n_people(ppl.keypoints, ppl.score, ppl.mask, 2)
+        return HF.hands_from_pose(hands[d], img.mean(dim=-1) * 255.0, kp, m, n_people=2)
+
+    torch.cuda.synchronize()
+    with recorded_syncs() as sites:
+        card_h = chain(device)
+    torch.cuda.synchronize()
+    require_syncs("pose -> hand chain", sites, {})
+    host_h = chain(cpu)
+    card_h = {k: v.cpu() for k, v in card_h.items()}
+    same = all(torch.equal(card_h[k], host_h[k]) for k in ("box_valid", "landmark_mask"))
+    box_d = float((card_h["boxes"] - host_h["boxes"]).abs().max())
+    lm_d = float((card_h["landmarks"] - host_h["landmarks"]).abs().max())
+    print(f"pose -> hand chain: {int(card_h['box_valid'].sum())} valid hand boxes, {int(card_h['landmark_mask'].sum())} "
+          f"landmarks; cuda vs cpu: masks equal {same}, boxes max diff {box_d:.3e} px, landmarks {lm_d:.3e} px")
+    require(same and box_d <= CHAIN_TOL and lm_d <= CHAIN_TOL, "pose -> hand chain: card and CPU disagree")
+    print(f"pose fixtures: {time.perf_counter() - t_phase:.1f} s")
+
+    # 2. Full width: BODY_25 PoseNet() at 368x368 with seeded weights.
+    topology = "BODY_25"
+    parts, pairs = pose.lookup_topology(topology)
+    wide = pose.init_posenet(torch.Generator().manual_seed(0), topology, device=device)
+    wide_cpu = copy.deepcopy(wide).to(cpu)
+    frames = {cpu: torch.from_numpy(np.random.default_rng(1).random((WIDE_BATCH,) + WIDE_HW + (3,), dtype=np.float32))}
+    frames[device] = frames[cpu].to(device)
+    with torch.no_grad():
+        maps = {d: net(frames[d][:1].permute(0, 3, 1, 2).contiguous()) for d, net in ((device, wide), (cpu, wide_cpu))}
+    for i, name in enumerate(("pafs", "heatmaps")):
+        a, b = maps[device][i].cpu(), maps[cpu][i]
+        diff, scale = float((a - b).abs().max()), float(b.abs().max())
+        print(f"full width {topology} {WIDE_HW} {name} {tuple(a.shape)}: cuda vs cpu max abs diff {diff:.3e} "
+              f"(max |map| {scale:.3f})")
+        require(diff <= WIDE_MAP_RTOL * max(scale, 1.0), f"full width: {name} differ beyond {WIDE_MAP_RTOL}")
+    # The decode of the card's merged maps, on the card and on the CPU: as
+    # they are, and scaled to a maximum of 1 (random weights give maps of
+    # ~0.01, under the peak threshold of 0.1; scaled, every part has its 32
+    # peaks and limbs pass the PAF test).
+    paf, hm = maps[device]
+    merged = (pose._merge([paf[0]], (WIDE_HW[0] // 8, WIDE_HW[1] // 8)),
+              pose._merge([hm[0, :len(parts)]], WIDE_HW))
+    unit = (merged[0] / merged[0].abs().amax(), merged[1] / merged[1].amax())
+    for label, m in (("as they are", merged), ("scaled to unit maximum", unit)):
+        torch.cuda.synchronize()
+        with recorded_syncs() as sites:
+            card = pose.decode_people(*m, pairs, num_parts=len(parts), paf_stride=8.0)
+        torch.cuda.synchronize()
+        require_syncs(f"full width decode_people ({label})", sites, {})
+        host = pose.decode_people(*(t.cpu() for t in m), pairs, num_parts=len(parts), paf_stride=8.0)
+        compare_people(f"full width {topology} decode of the card's maps {label}, cuda vs cpu", card, host)
+    ppl = pose.extract_people(wide, frames[device][0], topology, net_hw=WIDE_HW)
+    require(all(bool(torch.isfinite(t.float()).all()) for t in ppl), "full width: non-finite people")
+
+    vga = torch.from_numpy(np.random.default_rng(2).random((480, 640, 3), dtype=np.float32))
+    small = {d: resize(vga.to(d).movedim(-1, -3), WIDE_HW) for d in (device, cpu)}
+    rd = float((small[device].cpu() - small[cpu]).abs().max())
+    ppl = pose.extract_people(wide, vga.to(device), topology, net_hw=WIDE_HW)
+    torch.cuda.synchronize()
+    print(f"full width 480x640 frame: antialiased downsample to {WIDE_HW} cuda vs cpu max diff {rd:.3e}; "
+          f"{int(ppl.mask.sum())} people, keypoints {tuple(ppl.keypoints.shape)} finite "
+          f"{bool(torch.isfinite(ppl.keypoints).all())}")
+    require(rd <= 1e-5 and bool(torch.isfinite(ppl.keypoints).all()), "full width 480x640: downsample or output")
+
+    # 3. Times on the card.
+    ops = posenet_ops(wide, frames[device].permute(0, 3, 1, 2))
+    bound_ms = ops / PEAK_F32_OPS * 1e3
+    one, eight = frames[device][0], frames[device]
+    nchw = {b: frames[device][:b].permute(0, 3, 1, 2).contiguous() for b in (1, WIDE_BATCH)}
+    with torch.no_grad():
+        t_e1 = event_ms(lambda: pose.extract_people(wide, one, topology, net_hw=WIDE_HW))
+        t_e8 = event_ms(lambda: pose.extract_people(wide, eight, topology, net_hw=WIDE_HW))
+        t_c1 = event_ms(lambda: wide(nchw[1]))
+        t_c8 = event_ms(lambda: wide(nchw[WIDE_BATCH]))
+    s8 = (WIDE_HW[0] // 8, WIDE_HW[1] // 8)
+    m46 = torch.from_numpy(np.random.default_rng(3).random((1, len(parts) + 1) + s8, dtype=np.float32)).to(device)
+    hms = torch.from_numpy(np.random.default_rng(4).random((len(parts),) + WIDE_HW, dtype=np.float32)).to(device)
+    t_rm = event_ms(lambda: resize_and_merge(m46, WIDE_HW), calls=20)
+    t_nms = event_ms(lambda: nms_heatmap(hms, threshold=0.1, max_peaks=32), calls=20)
+    t_dec = event_ms(lambda: pose.decode_people(*unit, pairs, num_parts=len(parts), paf_stride=8.0), calls=20)
+    print(f"full width {topology} {WIDE_HW} times (CUDA events, median of {TIMED_REPS} runs of {TIMED_CALLS}):")
+    print(f"  extract_people B=1: {fmt_ms(t_e1)} a frame; B={WIDE_BATCH}: {fmt_ms(t_e8, WIDE_BATCH)} a frame "
+          f"({fmt_ms(t_e8)} a call)")
+    print(f"  CNN alone B=1: {fmt_ms(t_c1)}; B={WIDE_BATCH}: {fmt_ms(t_c8, WIDE_BATCH)} a frame")
+    print(f"  CNN bound: {ops / 1e9:.3f} GFLOP a frame (2 per multiply-add) at {PEAK_F32_OPS / 1e12:.0f} TFLOP/s "
+          f"= {bound_ms:.4f} ms a frame; share of bound B=1 {bound_ms / t_c1[0]:.4f}, "
+          f"B={WIDE_BATCH} {bound_ms * WIDE_BATCH / t_c8[0]:.4f}")
+    print(f"  resize_and_merge {tuple(m46.shape)} -> {WIDE_HW}: {fmt_ms(t_rm)}; nms_heatmap "
+          f"({len(parts)}, {WIDE_HW[0]}, {WIDE_HW[1]}) K=32: {fmt_ms(t_nms)}; decode_people (maps scaled to unit maximum): {fmt_ms(t_dec)}")
+    stages = {"cnn": [(wide, "forward")], "merge": [(pose, "_merge")], "nms": [(pose, "nms_heatmap")],
+              "paf scores": [(pose, "paf_pair_scores")], "greedy": [(pose, "greedy_match")],
+              "assemble": [(pose, "assemble_people")]}
+    for b, frame in ((1, one), (WIDE_BATCH, eight)):
+        pose.extract_people(wide, frame, topology, net_hw=WIDE_HW)
+        print(f"  extract_people B={b} stage ms (synchronized): "
+              f"{stage_ms(lambda: pose.extract_people(wide, frame, topology, net_hw=WIDE_HW), stages)}")
+        busy, wall, by_name, n_ops = device_profile(lambda: pose.extract_people(wide, frame, topology, net_hw=WIDE_HW), 5)
+        print(f"  extract_people B={b} profile (torch.profiler, 5 calls): device busy share {busy:.4f}, wall "
+              f"{wall:.3f} ms a call, {n_ops / 5:.0f} device ops a call, top device ms a call {top_ms(by_name)}")
+    print(f"pose phase: {time.perf_counter() - t_phase:.1f} s")
+
+
 def json_times(t):
     """A kernel's times for the JSON line: ``ms`` the eager wrapper call,
     ``device_ms`` its device time by graph replay. No single PyTorch call
@@ -1455,6 +1715,7 @@ def main() -> int:
         return 1
     from perception_tpu_torch.ops.kernels import build
 
+    t_run = time.perf_counter()
     device = torch.device("cuda", 0)
     card = subprocess.run(
         ["nvidia-smi", "--query-gpu=name,power.limit", "--format=csv,noheader"],
@@ -1491,6 +1752,7 @@ def main() -> int:
     mode_launches = run_cuboid_modes(device)
     obj_launches = run_objects(device)
     track_launches = run_tracker(device)
+    run_pose(device)
 
     k1_times = time_kernel(device)
     k2_times = time_k2(device)
@@ -1500,6 +1762,7 @@ def main() -> int:
     print(f"cuboid end to end: B=1 {fps1:.2f} frames/s (passes {[round(r, 2) for r in runs1]}), "
           f"B={FRAMES} {fps8:.2f} frames/s (passes {[round(r, 2) for r in runs8]})")
 
+    print(f"run: {time.perf_counter() - t_run:.1f} s")
     print(json.dumps({"kernels": [
         *({
             "name": "ransac_score",

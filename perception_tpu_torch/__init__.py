@@ -8,7 +8,11 @@ kernels under ``csrc/`` are compiled at first use on a CUDA tensor
 
 Ported so far: the cuboid pipeline (``models/cuboid.py``), SLAM
 odometry (``models/slam/odometry.py``) and the keyframe SLAM system on it
-(``models/slam/system.py``, ``models/slam/backend.py``), with what they
-run, including the three kernels under ``csrc/``: fused RANSAC scoring,
-the fused Gauss-Newton ICP system and the voxel-hash query.
+(``models/slam/system.py``, ``models/slam/backend.py``), the detection
+service and tracker (``models/objects.py``, ``models/object_tracking.py``)
+and the pose and hand path of the CNN facade (``models/pose.py``,
+``models/hand.py`` and their fixtures, read by ``io/flax_msgpack.py``),
+with what they run, including the three kernels under ``csrc/``: fused
+RANSAC scoring, the fused Gauss-Newton ICP system and the voxel-hash
+query.
 """

@@ -11,6 +11,15 @@ JAX) as the port's ``int32`` words. So both packages compute on the same
 state. The streaming tracker's state is its ``TrackSlots``:
 ``track_slots_from_jax`` takes one whose leaves are numpy arrays. Each
 puts the state on the card unless the caller passes ``device="cpu"``.
+
+The CNNs have weights: ``posenet_from_flax`` and ``handnet_from_flax``
+take a flax variable tree of numpy arrays (``{"params": ...}``, as
+``io.flax_msgpack`` reads the repo's fixtures), map each flax module
+name to the port's module by name, and return a state dict for
+``load_state_dict``. flax kernels are ``(kh, kw, in, out)`` over NHWC,
+the port's ``(out, in, kh, kw)`` over NCHW; both compute
+cross-correlation, so nothing is flipped. Input channels keep flax's
+order, which for a pose stage is the concat ``[features, paf, hm]``.
 """
 
 from __future__ import annotations
@@ -21,7 +30,9 @@ import numpy as np
 import torch
 
 from perception_tpu_torch.geometry.camera import PinholeCamera
+from perception_tpu_torch.models.hand import HandLandmarkNet
 from perception_tpu_torch.models.object_tracking import TrackSlots
+from perception_tpu_torch.models.pose import PoseNet
 from perception_tpu_torch.models.slam.odometry import OdometryState
 from perception_tpu_torch.models.slam.system import (
     EdgeList,
@@ -93,3 +104,51 @@ def track_slots_from_jax(slots, device="cuda") -> TrackSlots:
     """A JAX ``TrackSlots`` whose leaves are numpy arrays
     (``jax.tree.map(np.asarray, slots)``) -> the port's slots on ``device``."""
     return TrackSlots(*(_leaf(getattr(slots, name), device) for name in TrackSlots._fields))
+
+
+def _conv_state(tree: dict, names: dict, device) -> dict:
+    """{port module: flax module} -> the port's state dict; every flax
+    module is used once, and each kernel is (kh, kw, in, out)."""
+    unused = set(tree)
+    state = {}
+    for port, flax in names.items():
+        leaf = tree[flax]
+        unused.discard(flax)
+        kernel = np.asarray(leaf["kernel"], np.float32)
+        state[f"{port}.weight"] = torch.from_numpy(np.ascontiguousarray(kernel.transpose(3, 2, 0, 1))).to(device)
+        state[f"{port}.bias"] = torch.from_numpy(np.array(leaf["bias"], np.float32)).to(device)
+    if unused:
+        raise ValueError(f"flax modules with no counterpart: {sorted(unused)}")
+    return state
+
+
+def posenet_from_flax(params: dict, net: PoseNet, device="cuda") -> dict:
+    """A flax ``PoseNet`` variable tree -> ``net``'s state dict on ``device``.
+
+    ``ConvBlock_i`` is ``backbone[i]`` and the last one ``features``;
+    ``Stage_s/Conv_j`` is ``stages[s].convs[j]`` for j below the stage
+    depth, then ``mix``, ``paf`` and ``hm``.
+    """
+    tree = params["params"]
+    depth, blocks = net.stage_depth, len(net.backbone)
+    names = {}
+    for i in range(blocks + 1):
+        port = f"backbone.{i}" if i < blocks else "features"
+        for j in range(len(net.features.convs)):
+            names[f"{port}.convs.{j}"] = f"ConvBlock_{i}/Conv_{j}"
+    for s in range(len(net.stages)):
+        for j in range(depth):
+            names[f"stages.{s}.convs.{j}"] = f"Stage_{s}/Conv_{j}"
+        for j, head in enumerate(("mix", "paf", "hm")):
+            names[f"stages.{s}.{head}"] = f"Stage_{s}/Conv_{depth + j}"
+    flat = {f"{outer}/{inner}": leaf for outer, sub in tree.items() for inner, leaf in sub.items()}
+    return _conv_state(flat, names, device)
+
+
+def handnet_from_flax(params: dict, net: HandLandmarkNet, device="cuda") -> dict:
+    """A flax ``HandLandmarkNet`` variable tree -> ``net``'s state dict:
+    ``Conv_0`` to ``Conv_4`` are ``convs``, ``Conv_5`` the ``head``."""
+    n = len(net.convs)
+    names = {f"convs.{j}": f"Conv_{j}" for j in range(n)}
+    names["head"] = f"Conv_{n}"
+    return _conv_state(params["params"], names, device)

@@ -35,6 +35,13 @@ both modes, labels and sizes equal (integer sums; the centroids' float
 atomics within 1e-6); ``detect_object`` on the card against the CPU with
 the same RANSAC triplets: success, cluster id and sizes equal, the pose
 within 1 mm.
+The pose and hand path, with TF32 off for cuDNN and cuBLAS: ``nms_heatmap``
+on random maps and on a plateau with tied peaks equal to the CPU's
+(positions within 1e-6); ``assemble_people`` equal; ``crop_image`` of a
+[0, 255] image (a box larger than the crop, one partly outside) within
+2e-4; the tiny trained PoseNet's maps within 1e-4 and its
+``extract_people`` on 4 fixture scenes: the same people, keypoints within
+1e-3 px.
 """
 
 import numpy as np
@@ -69,6 +76,7 @@ def cuda_device():
     if not torch.cuda.is_available():
         pytest.skip("needs a CUDA card: the kernel has no CPU mode")
     torch.backends.cuda.matmul.allow_tf32 = False
+    torch.backends.cudnn.allow_tf32 = False
     return torch.device("cuda")
 
 
@@ -456,3 +464,71 @@ def test_cuda_detect_object_matches_cpu(cuda_device):
     for a, b in zip(c[:1] + c[3:], g[:1] + g[3:]):  # success, cluster id, size diff, count, sizes
         assert torch.equal(a, b)
     assert bool(g.success) and float((g.pose[:3, 3] - c.pose[:3, 3]).norm()) <= 1e-3
+
+
+def test_cuda_nms_heatmap_matches_cpu(cuda_device):
+    from perception_tpu_torch.ops.heatmap import nms_heatmap
+
+    rng = np.random.default_rng(0)
+    smooth = torch.nn.functional.avg_pool2d(torch.from_numpy(rng.random((25, 376, 376), dtype=np.float32))[None],
+                                            9, stride=1)[0]
+    plateau = torch.zeros(2, 16, 16)
+    plateau[0, 5:7, 8:10] = 0.7
+    plateau[0, 12, 3] = 0.9
+    for i in range(6):
+        plateau[1, 2 + 2 * (i // 3), 2 + 4 * (i % 3)] = 0.5
+    for hm, thr, k in ((smooth, 0.5, 32), (plateau, 0.05, 4)):
+        c = nms_heatmap(hm, threshold=thr, max_peaks=k)
+        g = nms_heatmap(hm.to(cuda_device), threshold=thr, max_peaks=k)
+        assert torch.equal(g.mask.cpu(), c.mask)
+        assert int(c.mask.sum()) > 0
+        assert torch.allclose(g.xy.cpu(), c.xy, rtol=0, atol=1e-6)
+        assert torch.equal(g.score.cpu(), c.score)
+
+
+def test_cuda_assemble_people_matches_cpu(cuda_device):
+    from perception_tpu_torch.models.pose import MPI_15_PAIRS
+    from perception_tpu_torch.ops.paf import assemble_people
+
+    rng = np.random.default_rng(5)
+    P, K, E, L = 15, 4, 4, len(MPI_15_PAIRS)
+    args = [torch.from_numpy(a) for a in (
+        rng.integers(0, K, (3, L, E)).astype(np.int32), rng.integers(0, K, (3, L, E)).astype(np.int32),
+        rng.random((3, L, E), dtype=np.float32), rng.random((3, L, E)) > 0.3,
+        rng.random((3, P, K, 2), dtype=np.float32) * 100, rng.random((3, P, K), dtype=np.float32),
+        rng.random((3, P, K)) > 0.2)]
+    pairs = torch.from_numpy(MPI_15_PAIRS)
+    c = assemble_people(pairs, *args, num_parts=P, max_peaks=K, max_people=6)
+    g = assemble_people(pairs.to(cuda_device), *(a.to(cuda_device) for a in args), num_parts=P, max_peaks=K,
+                        max_people=6)
+    assert int(c.mask.sum()) > 0
+    for a, b in zip(g, c):
+        assert torch.allclose(a.cpu().float(), b.float(), rtol=0, atol=1e-6)
+
+
+def test_cuda_crop_image_matches_cpu(cuda_device):
+    from perception_tpu_torch.models.hand import crop_image
+
+    img = torch.from_numpy((np.random.default_rng(2).random((96, 96), dtype=np.float32) * 255).astype(np.float32))
+    boxes = torch.tensor([[10.3, 5.7, 90.2, 85.6], [30.0, 20.0, 50.0, 40.0], [-10.0, -5.0, 120.0, 110.0]])
+    c = crop_image(img, boxes, 64)
+    g = crop_image(img.to(cuda_device), boxes.to(cuda_device), 64)
+    assert torch.allclose(g.cpu(), c, rtol=0, atol=2e-4)
+
+
+def test_cuda_tiny_posenet_matches_cpu(cuda_device):
+    from perception_tpu_torch.models import pose_fixture as PF
+
+    scenes, images = PF.sample_scenes(np.random.default_rng(7), 4)
+    x = torch.from_numpy(images)
+    nets = {d: PF.load_fixture(d) for d in ("cpu", cuda_device)}
+    with torch.no_grad():
+        c = nets["cpu"](x.permute(0, 3, 1, 2).contiguous())
+        g = nets[cuda_device](x.to(cuda_device).permute(0, 3, 1, 2).contiguous())
+    for a, b in zip(g, c):
+        assert torch.allclose(a.cpu(), b, rtol=0, atol=1e-4)
+    pc = PF.extract_fixture_people(nets["cpu"], x)
+    pg = PF.extract_fixture_people(nets[cuda_device], x.to(cuda_device))
+    assert int(pc.mask.sum()) >= 4
+    assert torch.equal(pg.mask.cpu(), pc.mask) and torch.equal(pg.num_parts.cpu(), pc.num_parts)
+    assert torch.allclose(pg.keypoints.cpu(), pc.keypoints, rtol=0, atol=1e-3)
