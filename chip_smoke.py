@@ -59,7 +59,24 @@ set to 0 just before it and read just after:
   480x640 frame through the antialiased downsample; ``extract_people`` ms
   a frame at B=1 and B=8, the CNN alone against its bound (f32 operations
   at 67 TFLOP/s), ``resize_and_merge`` and ``nms_heatmap`` at the
-  reference's stage shapes, the decode's stages, the device busy share.
+  reference's stage shapes, the decode's stages, the device busy share;
+- the face family, which runs none of the kernels either: the trained
+  face fixture's chain from pixels (detector -> crop -> landmarks ->
+  head-pose PnP -> gaze -> AUs) on 10 seeded 128x128 scenes with
+  ``tests/test_face_e2e.py``'s gates, and ``multi_face_step`` on
+  ``tests/test_face_multi.py``'s three-face 256x256 scene with its gates
+  (three slots, two throttled frames, the per-face AU02 gate), card
+  against CPU, no host sync;
+- the ``Perception`` facade at ``benchmarks/facade_bench.py``'s setting
+  (MPI_15 fixture, 4 face slots, hands of 2 people, 120 pre-staged
+  256x256 three-face frames a pass): frames/s, faces tracked, stage ms,
+  busy share, no host sync, the card's datum against the CPU's; and at
+  full width (BODY_25 PoseNet at 368x368 with seeded weights on 480x640
+  frames with three faces): ms a frame, card against CPU;
+- the person tracker (pyramidal LK + greedy matching) at
+  ``TrackerConfig()``'s defaults over 60 frames of 8 BODY_25 people with
+  padding rows on a shifting 480x640 texture: no id switch, ids and
+  keypoints card against CPU, no host sync, ms a step.
 
 Each kernel is timed at its path's shapes against its plain version, in
 turns (plain, kernel, kernel, plain): the kernel's eager wrapper call by
@@ -85,6 +102,7 @@ Run from the repository root: ``python3 chip_smoke.py``
 from __future__ import annotations
 
 import contextlib
+import dataclasses
 import itertools
 import json
 import statistics
@@ -172,6 +190,27 @@ TIMED_REPS = 3           # timed runs (median, with the spread), each of TIMED_C
 TIMED_CALLS = 5
 PEAK_F32_OPS = 67e12     # H100 SXM, f32 outside the tensor cores (NVIDIA's data sheet)
 PEAK_BYTES = 3.35e12     # H100 SXM HBM3
+FACE_SEED = 321          # the single-face scenes: the first FACE_SCENES of numpy's default_rng(FACE_SEED)
+FACE_SCENES = 10         # tests/test_face_e2e.py's count
+FACE_LM_TOL = 1e-3       # px: face boxes and landmarks, card against CPU
+FACE_POSE_TOL = 1e-4     # head-pose matrix entries (m, and rotation entries ~rad), card against CPU
+MULTI_HW = (256, 256)    # tests/test_face_multi.py's scene and facade_bench.py's frames
+MULTI_OFFSETS = ((-0.14, -0.14), (0.14, -0.14), (0.0, 0.14))
+MULTI_Z = 0.62
+MULTI_SEED = 0
+MULTI_SLOTS = 4
+FACADE_SEED = 0
+FACADE_STAGED = 8        # facade_bench.py: 8 pre-staged frames, 120 a pass
+FACADE_FRAMES = 120
+FULL_HW = (480, 640)     # the D435 colour resolution
+# Three faces at 480x640: at the wrapper's fx (300 x 640 / 128 = 1500) a
+# face at 3 m spans the pixels it spans in the 128x128 fixture at 0.6 m.
+FULL_OFFSETS = ((-0.35, -0.2), (0.35, -0.2), (0.0, 0.25))
+FULL_Z = 3.0
+PERSON_FRAMES = 60
+PERSON_COUNT = 8
+PERSON_PADS = 4
+PERSON_SHIFT = 2         # px a frame, the texture and the people
 
 
 def require(ok, message):
@@ -737,8 +776,11 @@ def run_odometry_paths(device, scene):
     return launches, rates
 
 
-def frames_per_s(fn, frames, passes=3):
-    fn()
+def frames_per_s(fn, frames, passes=3, warm=True):
+    """Median frames/s of ``passes`` calls of ``fn`` (``frames`` frames a
+    call) by the host clock, after a warm-up call unless ``warm`` is off."""
+    if warm:
+        fn()
     torch.cuda.synchronize()
     rates = []
     for _ in range(passes):
@@ -1699,6 +1741,442 @@ def run_pose(device):
     print(f"pose phase: {time.perf_counter() - t_phase:.1f} s")
 
 
+def face_scenes(seed=FACE_SEED, n=FACE_SCENES):
+    """The single-face scenes: ``n`` of ``sample_face`` at the fixture's
+    128x128 and fx from numpy's default_rng(``seed``), each rendered with
+    noise from the same generator: a list of (FaceScene, gray (H, W))."""
+    from perception_tpu_torch.models import face_fixture as FF
+    from perception_tpu_torch.models.face_data import render_face, sample_face
+
+    rng = np.random.default_rng(seed)
+    out = []
+    for _ in range(n):
+        scene = sample_face(rng, FF.FIXTURE_HW, FF.FIXTURE_FX, FF.FIXTURE_FX)
+        out.append((scene, render_face(scene, FF.FIXTURE_HW, rng=rng)))
+    return out
+
+
+def face_chain(nets, gray, fx, cx, cy):
+    """One face from pixels alone (``tests/test_face_e2e.py``'s pipeline):
+    the trained detector's best box -> 96-pixel crop -> landmarks ->
+    head-pose PnP -> gaze -> AU intensities. {name: tensor}."""
+    from perception_tpu_torch.models import face_fixture as FF
+    from perception_tpu_torch.models.face import gaze_from_landmarks, head_pose_pnp, normalize_landmarks
+    from perception_tpu_torch.models.hand import crop_image
+
+    det = FF.detect_with_net(nets["det"], gray)
+    box = det.boxes[0]
+    patch = crop_image(gray, box, FF.FIXTURE_CROP) / 255.0
+    uv, m, _ = FF.landmarks_from_crop(nets["landmark"], patch, box)
+    T, px_err = head_pose_pnp(uv, m, fx, fx, cx, cy)
+    gaze_r, gaze_l = gaze_from_landmarks(uv, T, fx, fx, cx, cy)
+    with torch.no_grad():
+        inten, _ = nets["au"](normalize_landmarks(uv, m))
+    return {"found": det.mask[0], "box": box, "landmarks": uv, "landmark_mask": m, "head_pose": T,
+            "reproj_px": px_err, "gaze": torch.stack([gaze_r, gaze_l]), "au_intensities": inten}
+
+
+def face_gates(scene, out):
+    """``tests/test_face_e2e.py``'s checks of one scene: (detector IoU
+    with the true box, mean landmark error px, head pose within 3 cm and
+    0.15 rad, gaze rays unit-length with z < 0, AU02 gate = brow raised)."""
+    from perception_tpu_torch.models.face import au_gated_pose_mask, iou
+    from perception_tpu_torch.models.face_data import crop_box_from_landmarks
+
+    out = {k: v.cpu() for k, v in out.items()}
+    box_iou = float(iou(out["box"], torch.from_numpy(crop_box_from_landmarks(scene.landmarks2d))))
+    m = out["landmark_mask"].numpy()
+    lm_err = float(np.linalg.norm(out["landmarks"].numpy() - scene.landmarks2d, axis=-1)[m].mean())
+    T = out["head_pose"].numpy()
+    t_err = float(np.linalg.norm(T[:3, 3] - scene.pose[:3, 3]))
+    ang = float(np.arccos(np.clip((np.trace(T[:3, :3] @ scene.pose[:3, :3].T) - 1) / 2, -1, 1)))
+    g = out["gaze"].numpy()
+    gaze_ok = bool(np.all(np.abs(np.linalg.norm(g, axis=-1) - 1.0) < 1e-4) and np.all(g[:, 2] < 0))
+    gate_ok = bool(au_gated_pose_mask(out["au_intensities"])) == (float(scene.au02) > 0.4)
+    return box_iou, lm_err, t_err < 0.03 and ang < 0.15, gaze_ok, gate_ok
+
+
+def three_faces(seed, hw=MULTI_HW, fx=None, offsets=MULTI_OFFSETS, z=MULTI_Z, n=1, au02=None):
+    """``tests/test_face_multi.py``'s and ``facade_bench.py``'s scene from
+    numpy's default_rng(seed): faces by ``sample_face_at`` at ``offsets``
+    (metres) and depth ``z`` (brow raise ``au02[i]`` where given), then
+    ``n`` renders with fresh noise. (scenes, grays (n, H, W) in [0, 255])."""
+    from perception_tpu_torch.models import face_fixture as FF
+    from perception_tpu_torch.models.face_data import render_faces, sample_face_at, stack_scenes
+
+    fx = FF.FIXTURE_FX if fx is None else fx
+    rng = np.random.default_rng(seed)
+    scenes = [sample_face_at(rng, hw, fx, fx, o, z, au02=None if au02 is None else au02[i])
+              for i, o in enumerate(offsets)]
+    stacked = stack_scenes(scenes)
+    return scenes, np.stack([render_faces(stacked, hw, rng=rng) for _ in range(n)])
+
+
+def match_faces(scenes, out):
+    """Each active slot's true face (best IoU): [(slot, face, IoU, landmark
+    error px, translation error m)]."""
+    from perception_tpu_torch.models.face import iou
+    from perception_tpu_torch.models.face_data import crop_box_from_landmarks
+
+    out = {k: v.cpu() for k, v in out.items()}
+    gt = torch.from_numpy(np.stack([crop_box_from_landmarks(s.landmarks2d) for s in scenes]))
+    rows = []
+    for j in torch.nonzero(out["mask"]).flatten().tolist():
+        ious = iou(out["boxes"][j][None], gt)
+        k = int(torch.argmax(ious))
+        m = out["landmark_mask"][j].numpy()
+        err = float(np.linalg.norm(out["landmarks"][j].numpy() - scenes[k].landmarks2d, axis=-1)[m].mean())
+        t_err = float(np.linalg.norm(out["head_pose"][j].numpy()[:3, 3] - scenes[k].pose[:3, 3]))
+        rows.append((j, k, float(ious[k]), err, t_err))
+    return rows
+
+
+def compare_faces(label, got, want, lm_tol=FACE_LM_TOL, pose_tol=FACE_POSE_TOL):
+    """Hold multi-face outputs ``got`` (any device) to ``want`` (CPU): the
+    same slots, landmark masks and gates; boxes and landmarks within
+    ``lm_tol`` px, head poses within ``pose_tol``."""
+    got = {k: v.cpu() for k, v in got.items()}
+    same = all(torch.equal(got[k], want[k]) for k in ("mask", "landmark_mask", "pose_gate", "ok"))
+    box = float((got["boxes"] - want["boxes"]).abs().max())
+    lm = float((got["landmarks"] - want["landmarks"]).abs().max())
+    pose = float((got["head_pose"] - want["head_pose"]).abs().max())
+    print(f"{label}: faces {int(want['mask'].sum())}, same slots, masks and gates {same}, boxes max diff {box:.3e} px, "
+          f"landmarks {lm:.3e} px, head poses {pose:.3e}")
+    require(same and box <= lm_tol and lm <= lm_tol and pose <= pose_tol,
+            f"{label}: card and CPU disagree beyond {lm_tol} px / {pose_tol}")
+
+
+def run_face(device):
+    """The face family on its own.
+
+    1. The single-face chain (``face_chain``) on FACE_SCENES scenes:
+       ``tests/test_face_e2e.py``'s gates (detector IoU > 0.5 on every
+       scene, mean landmark error < 4 px, head pose within 3 cm and 0.15
+       rad on all but one, gaze rays unit-length toward the camera, the
+       AU02 gate right on all but one), the card's landmarks within
+       FACE_LM_TOL px of the CPU's and its gates equal; no host sync.
+    2. ``multi_face_step`` on ``tests/test_face_multi.py``'s scene
+       (256x256, three faces at MULTI_OFFSETS, z = MULTI_Z, four slots):
+       3 slots, each face once at IoU > 0.5, landmark error < 5 px and
+       translation < 5 cm a face; two throttled frames (``detect`` False)
+       keeping the 3 faces with ``ok == mask``; the AU02 gate firing on
+       face 0 alone when only its brows are raised; card against CPU.
+    """
+    from perception_tpu_torch.models import face_fixture as FF
+    from perception_tpu_torch.models import face_multi as FM
+
+    t_phase = time.perf_counter()
+    cpu = torch.device("cpu")
+    nets = {d: FF.load_fixture(d) for d in (device, cpu)}
+    hw, fx = FF.FIXTURE_HW, FF.FIXTURE_FX
+    cx, cy = hw[1] / 2.0, hw[0] / 2.0
+
+    reset_launches()
+    rows, diffs, same = [], [], True
+    for i, (scene, img) in enumerate(face_scenes()):
+        gray = {d: torch.from_numpy(img).to(d) for d in (device, cpu)}
+        torch.cuda.synchronize()
+        with recorded_syncs() as sites:
+            card = face_chain(nets[device], gray[device], fx, cx, cy)
+        torch.cuda.synchronize()
+        if i == 0:
+            require_syncs("single-face chain", sites, {})
+        host = face_chain(nets[cpu], gray[cpu], fx, cx, cy)
+        rows.append(face_gates(scene, card))
+        same &= face_gates(scene, host)[2:] == rows[-1][2:] and torch.equal(card["landmark_mask"].cpu(),
+                                                                            host["landmark_mask"])
+        diffs.append(float((card["landmarks"].cpu() - host["landmarks"]).abs().max()))
+    counts = read_launches()
+    ious, errs, pose_ok, gaze_ok, gate_ok = zip(*rows)
+    print(f"face path launches of K1-K4 (none on this path): {counts}")
+    require(not any(counts.values()), "a K1-K4 kernel ran on the face path")
+    print(f"single-face chain on {FACE_SCENES} scenes (seed {FACE_SEED}, {hw[1]}x{hw[0]}): detector IoU "
+          f"{[round(v, 3) for v in ious]} (gate > 0.5 on every scene); landmark error {[round(v, 3) for v in errs]} px, "
+          f"mean {np.mean(errs):.3f} (gate < 4); head pose within 3 cm and 0.15 rad on {sum(pose_ok)} (gate >= "
+          f"{FACE_SCENES - 1}); gaze unit and toward the camera on {sum(gaze_ok)} (gate {FACE_SCENES}); AU02 gate "
+          f"right on {sum(gate_ok)} (gate >= {FACE_SCENES - 1}); cuda vs cpu: landmarks max diff {max(diffs):.3e} px "
+          f"(limit {FACE_LM_TOL}), gates and masks equal {same}")
+    require(min(ious) > 0.5 and np.mean(errs) < 4.0 and sum(pose_ok) >= FACE_SCENES - 1
+            and all(gaze_ok) and sum(gate_ok) >= FACE_SCENES - 1, "single-face chain: a gate missed")
+    require(same and max(diffs) <= FACE_LM_TOL, "single-face chain: card and CPU disagree")
+
+    # 2. Multi-face slots on the three-face scene.
+    cx, cy = MULTI_HW[1] / 2.0, MULTI_HW[0] / 2.0
+    scenes, img = three_faces(MULTI_SEED)
+    gray = {d: torch.from_numpy(img[0]).to(d) for d in (device, cpu)}
+    state = {d: FM.init_tracks(MULTI_SLOTS, d) for d in (device, cpu)}
+    reset_launches()
+    for frame, detect in enumerate((True, False, False)):
+        out = {}
+        for d in (device, cpu):
+            torch.cuda.synchronize()
+            with recorded_syncs() as sites:
+                state[d], out[d] = FM.multi_face_step(nets[d], gray[d], state[d], fx, fx, cx, cy, detect)
+            torch.cuda.synchronize()
+            if d == device and frame < 2:
+                require_syncs(f"multi_face_step (detect={detect})", sites, {})
+        compare_faces(f"multi-face frame {frame} (detect={detect}) cuda vs cpu", out[device], out[cpu])
+        card = {k: v.cpu() for k, v in out[device].items()}
+        rows = match_faces(scenes, card)
+        n_active = int(state[device].active.sum())
+        print(f"multi-face frame {frame} (detect={detect}): {len(rows)} faces, {n_active} active slots; (slot, face, "
+              f"IoU, landmark error px, translation error m) {[tuple(round(v, 4) for v in r) for r in rows]}; "
+              f"ok == mask {torch.equal(card['ok'], card['mask'])}")
+        require(len(rows) == 3 and n_active == 3 and sorted(r[1] for r in rows) == [0, 1, 2],
+                f"multi-face frame {frame}: not three faces, each once")
+        require(all(r[2] > 0.5 and r[3] < 5.0 and r[4] < 0.05 for r in rows),
+                f"multi-face frame {frame}: IoU, landmark or translation gate missed")
+        require(frame == 0 or torch.equal(card["ok"], card["mask"]), f"multi-face frame {frame}: a slot failed")
+    scenes, img = three_faces(MULTI_SEED + 2, au02=[1.0, 0.05, 0.05])
+    _, out = FM.multi_face_step(nets[device], torch.from_numpy(img[0]).to(device), FM.init_tracks(MULTI_SLOTS, device),
+                                fx, fx, cx, cy, True)
+    gate = out["pose_gate"].cpu()
+    raised = sorted(k for j, k, *_ in match_faces(scenes, out) if bool(gate[j]))
+    print(f"multi-face AU02 gate, brows raised on face 0 only: the gate fires on faces {raised} (want [0])")
+    require(raised == [0], "multi-face: the AU02 gate is not per face")
+    counts = read_launches()
+    print(f"multi-face path launches of K1-K4: {counts}")
+    require(not any(counts.values()), "a K1-K4 kernel ran on the multi-face path")
+
+    # Times of the face chain on the card.
+    one = torch.from_numpy(face_scenes(n=1)[0][1]).to(device)
+    st = [FM.init_tracks(MULTI_SLOTS, device)]
+    g3 = gray[device]
+
+    def step(detect=True):
+        st[0], _ = FM.multi_face_step(nets[device], g3, st[0], fx, fx, cx, cy, detect)
+
+    t_chain = event_ms(lambda: face_chain(nets[device], one, FF.FIXTURE_FX, 64.0, 64.0))
+    t_step = event_ms(step)
+    t_thr = event_ms(lambda: step(False))
+    crops = torch.rand((MULTI_SLOTS, 1, FF.FIXTURE_CROP, FF.FIXTURE_CROP), device=device)
+    with torch.no_grad():
+        t_lm = event_ms(lambda: nets[device]["landmark"](crops))
+        t_det = event_ms(lambda: nets[device]["det"](g3[None, None] / 255.0))
+    lm_ops = posenet_ops(nets[device]["landmark"], crops) * MULTI_SLOTS
+    det_ops = posenet_ops(nets[device]["det"], g3[None, None])
+    print(f"face times (CUDA events, median of {TIMED_REPS} runs of {TIMED_CALLS}): single-face chain {fmt_ms(t_chain)}; "
+          f"multi_face_step {MULTI_HW[1]}x{MULTI_HW[0]}, {MULTI_SLOTS} slots: detect {fmt_ms(t_step)}, throttled "
+          f"{fmt_ms(t_thr)}; landmark net on {MULTI_SLOTS} crops {fmt_ms(t_lm)} (bound {lm_ops / PEAK_F32_OPS * 1e3:.4f} "
+          f"ms, {lm_ops / 1e9:.4f} GFLOP); detector net {fmt_ms(t_det)} (bound {det_ops / PEAK_F32_OPS * 1e3:.4f} ms, "
+          f"{det_ops / 1e9:.4f} GFLOP)")
+    busy, wall, by_name, n_ops = device_profile(step, 10)
+    print(f"multi_face_step profile (torch.profiler, 10 calls): device busy share {busy:.4f}, wall {wall:.3f} ms a "
+          f"call, {n_ops / 10:.0f} device ops a call, top device ms a call {top_ms(by_name)}")
+    print(f"face phase: {time.perf_counter() - t_phase:.1f} s")
+
+
+def rgb(grays):
+    """Gray frames repeated to RGB, as ``facade_bench.py`` stages them."""
+    return np.repeat(grays[..., None], 3, axis=-1)
+
+
+def compare_datum(label, got, want):
+    """A card datum against the CPU's: people, faces and hands."""
+    compare_people(f"{label} people", got.people, want.people)
+    if want.faces is not None:
+        compare_faces(f"{label} faces", got.faces, want.faces)
+    if want.hands is not None:
+        h = {k: v.cpu() for k, v in got.hands.items()}
+        same = all(torch.equal(h[k], want.hands[k]) for k in ("box_valid", "landmark_mask"))
+        d = max(float((h[k] - want.hands[k]).abs().max()) for k in ("boxes", "landmarks"))
+        print(f"{label} hands: {int(want.hands['box_valid'].sum())} valid boxes, masks equal {same}, boxes and "
+              f"landmarks max diff {d:.3e} px")
+        require(same and d <= CHAIN_TOL, f"{label}: hands differ between card and CPU")
+
+
+def facade_stage_ms(engine, frame):
+    """One ``emplace_and_pop`` with a synchronize around its pose, face and
+    hand steps."""
+    from perception_tpu_torch import wrapper
+    from perception_tpu_torch.models import hand_fixture
+
+    return stage_ms(lambda: engine.emplace_and_pop(frame), {
+        "pose": [(engine, "_pose")], "face": [(engine, "_face")], "hands": [(hand_fixture, "hands_from_pose")]})
+
+
+def run_facade(device):
+    """The Perception facade.
+
+    1. ``benchmarks/facade_bench.py``'s setting: the MPI_15 pose fixture at
+       128x128, 4 face slots, hands of the top 2 people, on FACADE_STAGED
+       pre-staged 256x256 three-face frames, FACADE_FRAMES frames a pass:
+       frames/s (host clock ending in a synchronize, median of 3 passes),
+       faces tracked (3), stage ms, the busy share, host syncs of one
+       ``emplace_and_pop`` (stated: none) and the card's first datum
+       against the CPU's.
+    2. Full width: BODY_25 PoseNet at 368x368 (``init_posenet``'s seeded
+       weights), 4 face slots and hands of 2 people on 480x640 frames with
+       three faces (fx scaled as the wrapper scales it): ms a frame by CUDA
+       events, stage ms, the busy share, the card against the CPU on one
+       frame.
+    """
+    import copy
+
+    from perception_tpu_torch.models import face_fixture as FF
+    from perception_tpu_torch.wrapper import Perception, WrapperStructFace, WrapperStructHand, WrapperStructPose
+
+    t_phase = time.perf_counter()
+    cpu = torch.device("cpu")
+    face, hand = WrapperStructFace(enabled=True, max_faces=MULTI_SLOTS), WrapperStructHand(enabled=True, top_n_people=2)
+    frames = rgb(three_faces(FACADE_SEED, n=FACADE_STAGED)[1])
+    staged = torch.from_numpy(frames).to(device)
+    engines = {d: Perception(face=face, hand=hand, device=d) for d in (device, cpu)}
+    reset_launches()
+    first = engines[device].emplace_and_pop(staged[0], frame_index=0)
+    compare_datum("facade 256x256 frame 0 cuda vs cpu", first, engines[cpu].emplace_and_pop(frames[0], frame_index=0))
+    faces = int(first.faces["mask"].sum())
+    print(f"facade 256x256: faces tracked {faces} (want 3)")
+    require(faces == 3, "facade: not 3 faces tracked")
+    torch.cuda.synchronize()
+    with recorded_syncs() as sites:
+        engines[device].emplace_and_pop(staged[1], frame_index=1)
+    torch.cuda.synchronize()
+    require_syncs("facade emplace_and_pop (no sinks)", sites, {})
+
+    eng = engines[device]
+    i = itertools.count(2)
+    fps, runs = frames_per_s(
+        lambda: [eng.emplace_and_pop(staged[k % FACADE_STAGED], frame_index=k)
+                 for k in itertools.islice(i, FACADE_FRAMES)], FACADE_FRAMES, warm=False)
+    counts = read_launches()
+    last = eng.emplace_and_pop(staged[0])
+    print(f"facade path launches of K1-K4: {counts}")
+    require(not any(counts.values()), "a K1-K4 kernel ran on the facade path")
+    print(f"facade at facade_bench.py's setting (MPI_15 fixture 128x128, {MULTI_SLOTS} face slots, hands of 2 people, "
+          f"256x256 frames, {FACADE_FRAMES} a pass): {fps:.2f} frames/s (passes {[round(r, 2) for r in runs]}), "
+          f"faces tracked {int(last.faces['mask'].sum())}")
+    require(int(last.faces["mask"].sum()) == 3, "facade: the faces were not carried")
+    print(f"facade 256x256 stage ms (synchronized): {facade_stage_ms(eng, staged[0])}")
+    busy, wall, by_name, n_ops = device_profile(lambda: eng.emplace_and_pop(staged[0]), 10)
+    print(f"facade 256x256 profile (torch.profiler, 10 frames): device busy share {busy:.4f}, wall {wall:.3f} ms a "
+          f"frame, {n_ops / 10:.0f} device ops a frame, top device ms a frame {top_ms(by_name)}")
+
+    # 2. Full width at the D435 colour resolution.
+    fx = FF.FIXTURE_FX * max(FULL_HW) / max(FF.FIXTURE_HW)
+    frames = rgb(three_faces(FACADE_SEED, FULL_HW, fx, FULL_OFFSETS, FULL_Z, n=2)[1])
+    pose = WrapperStructPose(topology="BODY_25", net_hw=WIDE_HW)
+    wide = Perception(pose=pose, face=face, hand=hand, device=device)
+    wide_cpu = Perception(pose=dataclasses.replace(pose, params=copy.deepcopy(wide._pose_net).to(cpu)), face=face,
+                          hand=hand, device=cpu)
+    full = torch.from_numpy(frames).to(device)
+    reset_launches()
+    got = wide.emplace_and_pop(full[0])
+    compare_datum(f"full width facade {FULL_HW[1]}x{FULL_HW[0]} cuda vs cpu", got, wide_cpu.emplace_and_pop(frames[0]))
+    print(f"full width facade: {int(got.people.mask.sum())} people (random weights), {int(got.faces['mask'].sum())} "
+          f"faces, {int(got.hands['box_valid'].sum())} valid hand boxes")
+    require(int(got.faces["mask"].sum()) == 3, "full width facade: not 3 faces")
+    t_full = event_ms(lambda: wide.emplace_and_pop(full[1]))
+    counts = read_launches()
+    print(f"full width facade launches of K1-K4: {counts}")
+    require(not any(counts.values()), "a K1-K4 kernel ran on the full-width facade")
+    ops = posenet_ops(wide._pose_net, torch.zeros((1, 3) + WIDE_HW, device=device))
+    print(f"full width facade (BODY_25 {WIDE_HW}, {MULTI_SLOTS} face slots, hands of 2 people, {FULL_HW[1]}x{FULL_HW[0]} "
+          f"frames): {fmt_ms(t_full)} a frame (CUDA events, median of {TIMED_REPS} runs of {TIMED_CALLS}); pose CNN "
+          f"bound {ops / PEAK_F32_OPS * 1e3:.4f} ms ({ops / 1e9:.3f} GFLOP)")
+    print(f"full width facade stage ms (synchronized): {facade_stage_ms(wide, full[1])}")
+    busy, wall, by_name, n_ops = device_profile(lambda: wide.emplace_and_pop(full[1]), 5)
+    print(f"full width facade profile (torch.profiler, 5 frames): device busy share {busy:.4f}, wall {wall:.3f} ms a "
+          f"frame, {n_ops / 5:.0f} device ops a frame, top device ms a frame {top_ms(by_name)}")
+    print(f"facade phase: {time.perf_counter() - t_phase:.1f} s")
+
+
+def textured(seed, hw=FULL_HW):
+    """``tests/test_tracking.py``'s texture at ``hw``: random 8x8 blocks
+    in [0, 200), blurred with a Gaussian of sigma 1.5."""
+    from scipy.ndimage import gaussian_filter
+
+    rng = np.random.RandomState(seed)
+    img = np.kron(rng.rand(hw[0] // 8, hw[1] // 8) * 200, np.ones((8, 8)))
+    return gaussian_filter(img, 1.5).astype(np.float32)
+
+
+def person_scene(frames=PERSON_FRAMES, people=PERSON_COUNT, pads=PERSON_PADS, shift=PERSON_SHIFT, seed=0):
+    """PERSON_COUNT BODY_25-shaped people (a 25-part stick figure ~120 px
+    tall, 2 rows of 4) on a 480x640 texture shifted ``shift`` px a frame
+    to the right, the people with it; each frame's detections are the
+    people in a random order with ~0.5 px jitter, then ``pads`` padding
+    rows (mask False). (grays (F, H, W), detections (F, D, 25, 3), masks
+    (F, D), true person index of each row (F, D), -1 padding)."""
+    rng = np.random.default_rng(seed)
+    base = textured(seed)
+    figure = np.array([(0, 0), (0, 15), (-15, 15), (-22, 35), (-25, 55), (15, 15), (22, 35), (25, 55), (0, 60),
+                       (-9, 60), (-11, 85), (-12, 110), (9, 60), (11, 85), (12, 110), (-4, -3), (4, -3), (-8, 0),
+                       (8, 0), (14, 116), (18, 116), (12, 113), (-14, 116), (-18, 116), (-12, 113)], np.float32)
+    anchors = np.array([(50 + 130 * (p % 4), 80 + 200 * (p // 4)) for p in range(people)], np.float32)
+    grays, dets, masks, who = [], [], [], []
+    for t in range(frames):
+        grays.append(np.roll(base, shift * t, axis=1))
+        order = rng.permutation(people)
+        kp = anchors[order][:, None, :] + figure[None] + np.array([shift * t, 0.0], np.float32)
+        kp = kp + rng.normal(0.0, 0.5, kp.shape).astype(np.float32)
+        d = np.zeros((people + pads, 25, 3), np.float32)
+        d[:people, :, :2], d[:people, :, 2] = kp, 1.0
+        dets.append(d)
+        masks.append(np.arange(people + pads) < people)
+        who.append(np.concatenate([order, -np.ones(pads, np.int64)]))
+    return np.stack(grays), np.stack(dets), np.stack(masks), np.stack(who)
+
+
+def run_person_tracker(device):
+    """The person tracker (``models/tracking.py``, pyramidal LK) at
+    ``TrackerConfig()``'s defaults over PERSON_FRAMES frames of
+    ``person_scene``: no id switch (each person keeps its first id),
+    ``next_id`` = PERSON_COUNT, ids equal card vs CPU and keypoints within
+    1e-3 px; no host sync; ms a step by CUDA events."""
+    from perception_tpu_torch.models.tracking import TrackerConfig, tracker_init, tracker_step
+
+    t_phase = time.perf_counter()
+    cfg = TrackerConfig()
+    grays, dets, masks, who = person_scene()
+    on = {d: (torch.from_numpy(grays).to(d), torch.from_numpy(dets).to(d), torch.from_numpy(masks).to(d))
+          for d in (device, "cpu")}
+    states = {d: tracker_init(cfg, d) for d in on}
+    first_id, switches, kp_diff = {}, 0, 0.0
+    reset_launches()
+    for t in range(PERSON_FRAMES):
+        ids = {}
+        for d, (g, x, m) in on.items():
+            prev = g[max(t - 1, 0)]
+            if d == device and t == 2:
+                torch.cuda.synchronize()
+                with recorded_syncs() as sites:
+                    states[d], ids[d] = tracker_step(states[d], prev, g[t], x[t], m[t], cfg)
+                torch.cuda.synchronize()
+                require_syncs("tracker_step", sites, {})
+            else:
+                states[d], ids[d] = tracker_step(states[d], prev, g[t], x[t], m[t], cfg)
+        card, host = ids[device].cpu(), ids["cpu"]
+        require(torch.equal(card, host), f"person tracker frame {t}: ids differ between card and CPU")
+        kp_diff = max(kp_diff, float((states[device].keypoints.cpu() - states["cpu"].keypoints).abs().max()))
+        for row, person in enumerate(who[t]):
+            if person >= 0:
+                pid = int(card[row])
+                switches += int(first_id.setdefault(int(person), pid) != pid or pid < 0)
+    counts = read_launches()
+    next_id = int(states[device].next_id)
+    print(f"person tracker path launches of K1-K4: {counts}")
+    require(not any(counts.values()), "a K1-K4 kernel ran on the person tracker path")
+    print(f"person tracker (TrackerConfig() defaults, {PERSON_COUNT} BODY_25 people + {PERSON_PADS} padding rows, "
+          f"{PERSON_FRAMES} frames {FULL_HW[1]}x{FULL_HW[0]}, {PERSON_SHIFT} px a frame): id switches {switches} "
+          f"(want 0), next_id {next_id} (want {PERSON_COUNT}), ids card == cpu every frame, keypoints max diff "
+          f"{kp_diff:.3e} px (limit 1e-3)")
+    require(switches == 0 and next_id == PERSON_COUNT and kp_diff <= 1e-3, "person tracker: a gate missed")
+
+    g, x, m = on[device]
+    st = [states[device]]
+
+    def step():
+        st[0], _ = tracker_step(st[0], g[0], g[1], x[1], m[1], cfg)
+
+    t_step = event_ms(step)
+    busy, wall, by_name, n_ops = device_profile(step, 10)
+    print(f"tracker_step: {fmt_ms(t_step)} (CUDA events, median of {TIMED_REPS} runs of {TIMED_CALLS}); profile "
+          f"(torch.profiler, 10 steps): device busy share {busy:.4f}, wall {wall:.3f} ms a step, {n_ops / 10:.0f} device "
+          f"ops a step, top device ms a step {top_ms(by_name)}")
+    print(f"person tracker phase: {time.perf_counter() - t_phase:.1f} s")
+
+
 def json_times(t):
     """A kernel's times for the JSON line: ``ms`` the eager wrapper call,
     ``device_ms`` its device time by graph replay. No single PyTorch call
@@ -1753,6 +2231,9 @@ def main() -> int:
     obj_launches = run_objects(device)
     track_launches = run_tracker(device)
     run_pose(device)
+    run_face(device)
+    run_facade(device)
+    run_person_tracker(device)
 
     k1_times = time_kernel(device)
     k2_times = time_k2(device)

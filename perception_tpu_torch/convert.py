@@ -12,14 +12,20 @@ state. The streaming tracker's state is its ``TrackSlots``:
 ``track_slots_from_jax`` takes one whose leaves are numpy arrays. Each
 puts the state on the card unless the caller passes ``device="cpu"``.
 
-The CNNs have weights: ``posenet_from_flax`` and ``handnet_from_flax``
-take a flax variable tree of numpy arrays (``{"params": ...}``, as
+The face tracker's slots are a ``FaceTrackState`` and the person
+tracker's table a ``TrackState``: ``face_tracks_from_jax`` and
+``person_tracks_from_jax`` take them the same way.
+
+The nets have weights: ``posenet_from_flax``, ``handnet_from_flax``,
+``facenet_from_flax``, ``face_detector_from_flax`` and
+``au_head_from_flax`` take a flax variable tree of numpy arrays (``{"params": ...}``, as
 ``io.flax_msgpack`` reads the repo's fixtures), map each flax module
 name to the port's module by name, and return a state dict for
 ``load_state_dict``. flax kernels are ``(kh, kw, in, out)`` over NHWC,
 the port's ``(out, in, kh, kw)`` over NCHW; both compute
 cross-correlation, so nothing is flipped. Input channels keep flax's
-order, which for a pose stage is the concat ``[features, paf, hm]``.
+order, which for a pose stage is the concat ``[features, paf, hm]``. A
+``Dense`` kernel ``(in, out)`` is ``Linear.weight`` ``(out, in)``.
 """
 
 from __future__ import annotations
@@ -30,10 +36,13 @@ import numpy as np
 import torch
 
 from perception_tpu_torch.geometry.camera import PinholeCamera
+from perception_tpu_torch.models.face import ActionUnitHead, FaceLandmarkNet
+from perception_tpu_torch.models.face_detect import FaceDetectorNet
 from perception_tpu_torch.models.hand import HandLandmarkNet
 from perception_tpu_torch.models.object_tracking import TrackSlots
 from perception_tpu_torch.models.pose import PoseNet
 from perception_tpu_torch.models.slam.odometry import OdometryState
+from perception_tpu_torch.models.tracking import TrackState
 from perception_tpu_torch.models.slam.system import (
     EdgeList,
     KeyframeStore,
@@ -106,16 +115,33 @@ def track_slots_from_jax(slots, device="cuda") -> TrackSlots:
     return TrackSlots(*(_leaf(getattr(slots, name), device) for name in TrackSlots._fields))
 
 
+def face_tracks_from_jax(state, device="cuda"):
+    """A JAX ``FaceTrackState`` whose leaves are numpy arrays -> the port's.
+    (``models/face_multi`` imports this module through its fixture, so it
+    is imported here, not at the top.)"""
+    from perception_tpu_torch.models.face_multi import FaceTrackState
+
+    return FaceTrackState(*(_leaf(getattr(state, name), device) for name in FaceTrackState._fields))
+
+
+def person_tracks_from_jax(state, device="cuda") -> TrackState:
+    """A JAX ``TrackState`` (``models/tracking.py``) whose leaves are numpy
+    arrays -> the port's."""
+    return TrackState(*(_leaf(getattr(state, name), device) for name in TrackState._fields))
+
+
 def _conv_state(tree: dict, names: dict, device) -> dict:
     """{port module: flax module} -> the port's state dict; every flax
-    module is used once, and each kernel is (kh, kw, in, out)."""
+    module is used once. A conv kernel is (kh, kw, in, out), a ``Dense``
+    kernel (in, out)."""
     unused = set(tree)
     state = {}
     for port, flax in names.items():
         leaf = tree[flax]
         unused.discard(flax)
         kernel = np.asarray(leaf["kernel"], np.float32)
-        state[f"{port}.weight"] = torch.from_numpy(np.ascontiguousarray(kernel.transpose(3, 2, 0, 1))).to(device)
+        kernel = kernel.transpose(3, 2, 0, 1) if kernel.ndim == 4 else kernel.T
+        state[f"{port}.weight"] = torch.from_numpy(np.ascontiguousarray(kernel)).to(device)
         state[f"{port}.bias"] = torch.from_numpy(np.array(leaf["bias"], np.float32)).to(device)
     if unused:
         raise ValueError(f"flax modules with no counterpart: {sorted(unused)}")
@@ -145,10 +171,35 @@ def posenet_from_flax(params: dict, net: PoseNet, device="cuda") -> dict:
     return _conv_state(flat, names, device)
 
 
-def handnet_from_flax(params: dict, net: HandLandmarkNet, device="cuda") -> dict:
-    """A flax ``HandLandmarkNet`` variable tree -> ``net``'s state dict:
-    ``Conv_0`` to ``Conv_4`` are ``convs``, ``Conv_5`` the ``head``."""
+def facenet_from_flax(params: dict, net: FaceLandmarkNet, device="cuda") -> dict:
+    """A flax ``FaceLandmarkNet`` (or ``HandLandmarkNet``) variable tree ->
+    ``net``'s state dict: ``Conv_0`` to ``Conv_4`` are ``convs``, ``Conv_5``
+    the ``head``."""
     n = len(net.convs)
     names = {f"convs.{j}": f"Conv_{j}" for j in range(n)}
     names["head"] = f"Conv_{n}"
+    return _conv_state(params["params"], names, device)
+
+
+def handnet_from_flax(params: dict, net: HandLandmarkNet, device="cuda") -> dict:
+    """A flax ``HandLandmarkNet`` variable tree -> ``net``'s state dict (the
+    face landmark net's layout)."""
+    return facenet_from_flax(params, net, device)
+
+
+def face_detector_from_flax(params: dict, net: FaceDetectorNet, device="cuda") -> dict:
+    """A flax ``FaceDetectorNet`` variable tree -> ``net``'s state dict:
+    ``Conv_0`` to ``Conv_3`` are ``convs``, ``Conv_4`` ``heat``, ``Conv_5``
+    ``size``."""
+    n = len(net.convs)
+    names = {f"convs.{j}": f"Conv_{j}" for j in range(n)}
+    names.update(heat=f"Conv_{n}", size=f"Conv_{n + 1}")
+    return _conv_state(params["params"], names, device)
+
+
+def au_head_from_flax(params: dict, net: ActionUnitHead, device="cuda") -> dict:
+    """A flax ``ActionUnitHead`` variable tree -> ``net``'s state dict:
+    ``Dense_0`` is ``hidden``, ``Dense_1`` ``intensity``, ``Dense_2``
+    ``presence``."""
+    names = {"hidden": "Dense_0", "intensity": "Dense_1", "presence": "Dense_2"}
     return _conv_state(params["params"], names, device)

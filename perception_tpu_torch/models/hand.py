@@ -13,11 +13,9 @@ from __future__ import annotations
 from typing import Tuple
 
 import torch
-import torch.nn.functional as F
-from torch import nn
 
 from perception_tpu_torch._tensor import const
-from perception_tpu_torch.models.face import decode_landmarks  # same crop decode
+from perception_tpu_torch.models.face import FaceLandmarkNet, decode_landmarks  # same net and crop decode
 from perception_tpu_torch.ops.resize import scale_and_translate
 
 NUM_HAND_LANDMARKS = 21
@@ -45,27 +43,12 @@ def hand_roi_from_pose(keypoints: torch.Tensor, arm=(3, 4), extend: float = 1.2)
     return box, ok & (length > 1.0)
 
 
-class HandLandmarkNet(nn.Module):
-    """(N, C, S, S) hand crop -> (N, 21, S/4, S/4) heatmaps (channel-first;
-    flax's is NHWC). TF32: see ``models/pose.PoseNet``."""
+class HandLandmarkNet(FaceLandmarkNet):
+    """(N, C, S, S) hand crop -> (N, 21, S/4, S/4) heatmaps: the face
+    landmark net's architecture with 21 landmarks."""
 
     def __init__(self, width: int = 64, in_channels: int = 1):
-        super().__init__()
-        w = width
-        self.convs = nn.ModuleList([
-            nn.Conv2d(in_channels, w, 3, padding=1), nn.Conv2d(w, w, 3, padding=1),
-            nn.Conv2d(w, 2 * w, 3, padding=1), nn.Conv2d(2 * w, 2 * w, 3, padding=1),
-            nn.Conv2d(2 * w, 2 * w, 3, padding=1),
-        ])
-        self.head = nn.Conv2d(2 * w, NUM_HAND_LANDMARKS, 1)
-
-    def forward(self, x):
-        c = self.convs
-        for i in (0, 2):
-            x = F.relu(c[i + 1](F.relu(c[i](x))))
-            x = F.max_pool2d(x, 2)
-        x = F.relu(c[4](x))
-        return self.head(x)
+        super().__init__(width, in_channels, NUM_HAND_LANDMARKS)
 
 
 def crop_image(image: torch.Tensor, box: torch.Tensor, out_size: int) -> torch.Tensor:

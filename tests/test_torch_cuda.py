@@ -42,6 +42,14 @@ on random maps and on a plateau with tied peaks equal to the CPU's
 2e-4; the tiny trained PoseNet's maps within 1e-4 and its
 ``extract_people`` on 4 fixture scenes: the same people, keypoints within
 1e-3 px.
+The face family, the facade and the person tracker: ``chip_smoke``'s
+single-face chain on 3 scenes (boxes and landmarks within 1e-3 px, the
+same masks, head poses and AU intensities within 1e-4); the facade
+(pose, 4 face slots, hands) on two 256x256 three-face frames (the same
+people and slots, keypoints and face landmarks within 1e-3 px, head poses
+within 1e-4, hand landmarks within 1e-2 px); ``tracker_step`` over 4
+frames of ``person_scene`` (ids equal, keypoints within 1e-3 px), and its
+slot collision repeated 20 times with one result.
 """
 
 import numpy as np
@@ -532,3 +540,72 @@ def test_cuda_tiny_posenet_matches_cpu(cuda_device):
     assert int(pc.mask.sum()) >= 4
     assert torch.equal(pg.mask.cpu(), pc.mask) and torch.equal(pg.num_parts.cpu(), pc.num_parts)
     assert torch.allclose(pg.keypoints.cpu(), pc.keypoints, rtol=0, atol=1e-3)
+
+
+def test_cuda_face_chain_matches_cpu(cuda_device):
+    import chip_smoke
+    from perception_tpu_torch.models import face_fixture as FF
+
+    nets = {d: FF.load_fixture(d) for d in ("cpu", cuda_device)}
+    for _, img in chip_smoke.face_scenes(n=3):
+        c, g = (chip_smoke.face_chain(nets[d], torch.from_numpy(img).to(d), FF.FIXTURE_FX, 64.0, 64.0)
+                for d in ("cpu", cuda_device))
+        assert torch.equal(g["landmark_mask"].cpu(), c["landmark_mask"]) and bool(g["found"])
+        for key, tol in (("box", 1e-3), ("landmarks", 1e-3), ("head_pose", 1e-4), ("au_intensities", 1e-4)):
+            assert torch.allclose(g[key].cpu(), c[key], rtol=0, atol=tol), key
+
+
+def test_cuda_facade_step_matches_cpu(cuda_device):
+    import chip_smoke
+    from perception_tpu_torch.wrapper import Perception, WrapperStructFace, WrapperStructHand
+
+    frames = chip_smoke.rgb(chip_smoke.three_faces(chip_smoke.FACADE_SEED, n=2)[1])
+    face, hand = WrapperStructFace(enabled=True, max_faces=4, detect_every=2), WrapperStructHand(enabled=True,
+                                                                                                 top_n_people=2)
+    engines = {d: Perception(face=face, hand=hand, device=d) for d in ("cpu", cuda_device)}
+    for img in frames:
+        c = engines["cpu"].emplace_and_pop(img)
+        g = engines[cuda_device].emplace_and_pop(torch.from_numpy(img).to(cuda_device))
+        assert torch.equal(g.people.mask.cpu(), c.people.mask)
+        assert torch.allclose(g.people.keypoints.cpu(), c.people.keypoints, rtol=0, atol=1e-3)
+        assert int(g.faces["mask"].sum()) == 3
+        for key in ("mask", "landmark_mask", "ok", "pose_gate"):
+            assert torch.equal(g.faces[key].cpu(), c.faces[key]), key
+        assert torch.allclose(g.faces["landmarks"].cpu(), c.faces["landmarks"], rtol=0, atol=1e-3)
+        assert torch.allclose(g.faces["head_pose"].cpu(), c.faces["head_pose"], rtol=0, atol=1e-4)
+        assert torch.equal(g.hands["landmark_mask"].cpu(), c.hands["landmark_mask"])
+        assert torch.allclose(g.hands["landmarks"].cpu(), c.hands["landmarks"], rtol=0, atol=1e-2)
+
+
+def test_cuda_tracker_step_matches_cpu_and_repeats(cuda_device):
+    """``person_scene``'s first frames card against CPU; then the slot
+    collision (a padding row after a match to the last slot) 20 times on
+    the card: the same result every time, the JAX package's on the CPU."""
+    import chip_smoke
+    from perception_tpu_torch.models.tracking import TrackerConfig, tracker_init, tracker_step
+
+    grays, dets, masks, _ = chip_smoke.person_scene(frames=4)
+    cfg = TrackerConfig()
+    states = {d: tracker_init(cfg, d) for d in ("cpu", cuda_device)}
+    for t in range(4):
+        ids = {}
+        for d in states:
+            g = torch.from_numpy(grays).to(d)
+            states[d], ids[d] = tracker_step(states[d], g[max(t - 1, 0)], g[t], torch.from_numpy(dets[t]).to(d),
+                                             torch.from_numpy(masks[t]).to(d), cfg)
+        assert torch.equal(ids[cuda_device].cpu(), ids["cpu"])
+        assert torch.allclose(states[cuda_device].keypoints.cpu(), states["cpu"].keypoints, rtol=0, atol=1e-3)
+
+    cfg = TrackerConfig(max_tracks=2, num_parts=5)
+    img = torch.from_numpy(chip_smoke.textured(0, (120, 160))).to(cuda_device)
+    person = torch.tensor([[0.0, 8.0 * p, 1.0] for p in range(5)], device=cuda_device)
+    at = torch.tensor([[40.0, 30.0, 0.0], [100.0, 40.0, 0.0], [43.0, 30.0, 0.0], [105.0, 40.0, 0.0]],
+                      device=cuda_device)
+    first = torch.stack([person + at[0], person + at[1]])
+    second = torch.cat([torch.stack([person + at[2], person + at[3]]), torch.zeros((1, 5, 3), device=cuda_device)])
+    mask = torch.tensor([True, True, False], device=cuda_device)
+    st, _ = tracker_step(tracker_init(cfg, cuda_device), img, img, first, mask[:2], cfg)
+    results = {tuple(tracker_step(st, img, img, second, mask, cfg)[0].keypoints[:, 0, 0].cpu().tolist())
+               for _ in range(20)}
+    assert len(results) == 1
+    assert np.allclose(next(iter(results)), [43.0, 100.0], atol=1e-2)
