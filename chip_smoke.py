@@ -76,7 +76,22 @@ set to 0 just before it and read just after:
 - the person tracker (pyramidal LK + greedy matching) at
   ``TrackerConfig()``'s defaults over 60 frames of 8 BODY_25 people with
   padding rows on a shifting 480x640 texture: no id switch, ids and
-  keypoints card against CPU, no host sync, ms a step.
+  keypoints card against CPU, no host sync, ms a step;
+- the command line from files (``run_cli``, right after the SLAM phase,
+  on its rendered sweep), through ``perception_tpu_torch.cli.main`` with
+  the native host library built and required: ``cuboid`` on the 8 bench
+  frames as 16-bit mm PNGs with the template as ascii and binary PCD (8/8
+  within 2 cm, one K1 launch a call), ``objects`` on the 640x480 clutter
+  scene as a mm PNG with each class's template as PCD, at the CLI's
+  defaults (the JAX CLI's answers on the same files: success, winning
+  cluster, sizes and size difference equal, chamfer within 0.05 cm),
+  ``odometry --tum`` and ``slam --tum`` over the 300-frame sweep written
+  as a TUM sequence at 640x480 (ATE at most 2 cm, the ``--out``
+  trajectory read back and within 1e-4 of ``run_odometry`` /
+  ``run_slam`` on the decoded arrays, frames/s from files), ``pose
+  --image`` (the people of the in-memory facade); the PNG decode ms a
+  frame, below an odometry step, and the sequence's read + decode rate
+  with and without the native read-ahead.
 
 Each kernel is timed at its path's shapes against its plain version, in
 turns (plain, kernel, kernel, plain): the kernel's eager wrapper call by
@@ -161,6 +176,19 @@ OBJ_JAX_REFERENCE = {
     "clamp": (True, 1, 26, 23.764),
     "marker": (True, 3, 40, 23.358),
 }
+# The JAX package's command line on the same scene stored as a 16-bit
+# mm PNG, each class's template as a binary PCD, at its defaults
+# (ObjectConfig(), --seed 0; objects_reference.py --cli, on the CPU):
+# (success, winning cluster, size difference, cluster sizes, chamfer cm).
+# run_cli holds the port's command line to the same answers, chamfer
+# within 0.05 cm. At cluster_min_size 200 two clusters survive and the
+# size winner is cluster 1 for every class: only the screwdriver lies there.
+OBJ_CLI_JAX_REFERENCE = {
+    "eraser": (True, 1, 248, [473, 308, 0, 0, 0, 0, 0, 0], 19.359),
+    "screwdriver": (True, 1, 136, [473, 308, 0, 0, 0, 0, 0, 0], 0.106),
+    "clamp": (True, 1, 23, [473, 308, 0, 0, 0, 0, 0, 0], 23.416),
+    "marker": (True, 1, 215, [473, 308, 0, 0, 0, 0, 0, 0], 16.536),
+}
 TRACK_FRAMES = 300       # tracking_bench.py's camera_trajectory(300)
 TRACK_CPU_FRAMES = 6     # tracker on the card against the CPU
 TRACK_SYNC_FRAMES = 4    # tracker steps under torch's sync debug mode
@@ -211,6 +239,11 @@ PERSON_FRAMES = 60
 PERSON_COUNT = 8
 PERSON_PADS = 4
 PERSON_SHIFT = 2         # px a frame, the texture and the people
+
+
+CLI_ODO_FRAMES = 300     # cli odometry --tum over the whole 640x480 sweep
+CLI_SLAM_FRAMES = 300    # cli slam --tum over the whole sweep
+CLI_POSE_TOL = 1e-4      # m and rotation entries: the --out file (6 decimals) against the in-memory run
 
 
 def require(ok, message):
@@ -684,12 +717,10 @@ def slam_scene(frames=SLAM_FRAMES):
     ``sweep_trajectory(n=300)``, its first ``frames`` poses rendered once
     (frames in parallel; seed = frame index): (camera, gt (frames, 4, 4),
     grays, depths (frames, H, W))."""
+    from perception_tpu_torch.bench.slam_bench import bench_camera
     from perception_tpu_torch.bench.slam_scene import render_textured_room, sweep_trajectory
-    from perception_tpu_torch.geometry.camera import PinholeCamera
 
-    w, h = 640, 480
-    fx = 307.0 * w / 320.0
-    camera = PinholeCamera.from_K([fx, 0, w / 2, 0, fx, h / 2, 0, 0, 1], width=w, height=h)
+    camera = bench_camera(640, 480)
     gt = sweep_trajectory(n=SLAM_FRAMES)[:frames]
     with ThreadPoolExecutor(8) as pool:
         images = list(pool.map(lambda i: render_textured_room(camera, gt[i], seed=i), range(frames)))
@@ -698,15 +729,11 @@ def slam_scene(frames=SLAM_FRAMES):
     return camera, np.stack(gt), grays, depths
 
 
-# benchmarks/slam_bench.py's odometry settings.
-BENCH_ODOM = dict(point_budget=2048, keyframe_budget=4096, icp_iterations=8, min_depth=0.1,
-                  max_depth=6.0, normal_max_edge=0.1, kf_translation=0.10, kf_rotation=0.12)
-
-
 def odometry_configs():
     """The default keyframe mode (op graph, then K2) and the SLAM bench's
     map-fusion settings (benchmarks/slam_bench.py) at map_budget 32768
     (shortlist, then the voxel hash)."""
+    from perception_tpu_torch.bench.slam_bench import BENCH_ODOM
     from perception_tpu_torch.models.slam.odometry import OdometryConfig
 
     return {
@@ -795,17 +822,12 @@ def slam_configs():
     """benchmarks/slam_bench.py's three configurations, with the engine
     named: keyframe mode with BA and without (the bench's ablation), each
     on K2, and map fusion at map_budget 32768 on the voxel hash."""
-    from perception_tpu_torch.models.slam.odometry import OdometryConfig
-    from perception_tpu_torch.models.slam.system import SlamConfig
+    from perception_tpu_torch.bench.slam_bench import bench_config
 
-    slam = dict(max_keyframes=64, max_edges=192, features_per_kf=256, fast_threshold=15.0,
-                lc_min_gap=3, lc_min_matches=20, lc_min_inliers=10)
-    k2 = OdometryConfig(**BENCH_ODOM, fused_gn="on")
     return {
-        "slam keyframe+BA K2": SlamConfig(odometry=k2, **slam),
-        "slam keyframe no-BA K2": SlamConfig(odometry=k2, enable_ba=False, **slam),
-        "slam map 32768 hash": SlamConfig(
-            odometry=OdometryConfig(**BENCH_ODOM, map_budget=32768, map_nn="hash"), **slam),
+        "slam keyframe+BA K2": bench_config(fused_gn="on"),
+        "slam keyframe no-BA K2": bench_config(enable_ba=False, fused_gn="on"),
+        "slam map 32768 hash": bench_config(map_budget=32768, map_nn="hash"),
     }
 
 
@@ -2177,6 +2199,264 @@ def run_person_tracker(device):
     print(f"person tracker phase: {time.perf_counter() - t_phase:.1f} s")
 
 
+def cli_call(argv):
+    """``perception_tpu_torch.cli.main(argv)`` with the kernels' launch
+    counts set to 0 just before and read just after, its stdout captured:
+    (its JSON lines, seconds to the end of its device work, launches)."""
+    import io
+
+    from perception_tpu_torch import cli
+
+    out = io.StringIO()
+    torch.cuda.synchronize()
+    reset_launches()
+    t0 = time.perf_counter()
+    with contextlib.redirect_stdout(out):
+        cli.main([str(a) for a in argv])
+    torch.cuda.synchronize()
+    seconds = time.perf_counter() - t0
+    counts = read_launches()
+    return [json.loads(line) for line in out.getvalue().splitlines() if line.startswith("{")], seconds, counts
+
+
+def pose_diff(poses, want):
+    """(max translation distance m, max rotation entry difference) of two (N, 4, 4) stacks."""
+    poses, want = np.asarray(poses, np.float64), np.asarray(want, np.float64)
+    return (float(np.linalg.norm(poses[:, :3, 3] - want[:, :3, 3], axis=-1).max()),
+            float(np.abs(poses[:, :3, :3] - want[:, :3, :3]).max()))
+
+
+def run_cli(device, scene):
+    """The command line from files, as a user runs it (README), through
+    ``perception_tpu_torch.cli.main``, on files this phase writes into a
+    temporary directory; the native host library is required (its build
+    raises). Returns the K1 launches of the counted ``cuboid`` and
+    ``objects`` calls.
+
+    - ``cuboid``: the 8 bench frames as 16-bit mm PNGs (``--depth-scale
+      0.001``), the template as ascii and as binary PCD: 8/8 accepted
+      within 2 cm each time, one K1 launch a call.
+    - ``objects``: the 640x480 clutter scene as a mm PNG, each class's
+      captured template as a binary PCD, at the CLI's defaults
+      (``ObjectConfig()``, ``--seed 0``): success, size difference and
+      cluster sizes ``OBJ_CLI_JAX_REFERENCE``'s (the JAX CLI on the same
+      files), the chamfer error within 0.05 cm of its and on the same
+      side of 1 cm; ``detect_object`` on the decoded depth in memory gives
+      the CLI's answer and the reference's winning cluster (the CLI's
+      JSON has no cluster id); one K1 launch a call.
+    - ``odometry --tum`` and ``slam --tum``: the SLAM scene's sweep
+      written by ``bench/tum_sequence.py`` at 640x480 (CLI_ODO_FRAMES and
+      CLI_SLAM_FRAMES frames), the files read frame by frame as the JAX
+      CLI reads them: ATE (aligned, as the CLI reports it) at most 2 cm,
+      the ``--out`` trajectory read back by ``read_trajectory`` with the
+      sequence's timestamps, its poses within CLI_POSE_TOL of
+      ``run_odometry`` / ``run_slam`` on the same decoded arrays in
+      memory (the file rounds to 1e-6), no kernel launch (default
+      configurations: the op graph).
+    - ``pose --image``: a fixture scene as an 8-bit PNG: the people of
+      ``--out-json`` equal those of the facade on the decoded image.
+    Prints frames/s from files, the PNG decode ms a frame (native, and
+    numpy for one depth frame), and the sequence's read + decode rate in
+    turns in order and through the native read-ahead
+    (``runtime.FramePrefetcher``, decoding on the caller's thread)."""
+    import tempfile
+    from pathlib import Path
+
+    from perception_tpu_torch import runtime
+    from perception_tpu_torch.bench.clutter_scene import captured_template, render_depth_clutter, standard_clutter_poses
+    from perception_tpu_torch.bench.scene import bench_frames, benchmark_template
+    from perception_tpu_torch.bench.tum_sequence import write_tum_sequence
+    from perception_tpu_torch.geometry.camera import PinholeCamera, depth_from_u16
+    from perception_tpu_torch.io.pcd import write_pcd
+    from perception_tpu_torch.io.png import decode_png, encode_png, read_png, write_png
+    from perception_tpu_torch.io.tum import TumSequence, read_trajectory, sequence_camera
+    from perception_tpu_torch.models.objects import ObjectConfig, detect_object
+    from perception_tpu_torch.models.pose_data import render_people, sample_skeletons
+    from perception_tpu_torch.models.pose_fixture import FIXTURE_HW, FIXTURE_TOPOLOGY
+    from perception_tpu_torch.models.slam.odometry import OdometryConfig, run_odometry
+    from perception_tpu_torch.models.slam.system import SlamConfig, run_slam
+    from perception_tpu_torch.wrapper import Perception, WrapperStructPose
+
+    t_phase = time.perf_counter()
+    runtime.build_native()
+    require(runtime.native_available(), "the native host library is not available")
+    print(f"native host library: {runtime.library_path().name}, native_available() {runtime.native_available()}")
+    launches = {"cuboid": 0, "objects": 0}
+    none = {"ransac_score": 0, "icp_gn": 0, "voxelhash_query": 0}
+    one_k1 = dict(none, ransac_score=1)
+    with tempfile.TemporaryDirectory() as tmp:
+        tmp = Path(tmp)
+
+        # cuboid: PNG + PCD (ascii and binary), one call a frame.
+        camera = PinholeCamera.d435_depth()
+        depths, gts = bench_frames(camera, range(FRAMES))
+        tmpl = benchmark_template()
+        write_pcd(tmp / "ascii.pcd", tmpl)
+        write_pcd(tmp / "binary.pcd", tmpl, binary=True)
+        require(np.array_equal(runtime.read_pcd_native(tmp / "binary.pcd"), tmpl), "native binary PCD read")
+        for i in range(FRAMES):
+            write_png(tmp / f"bench{i}.png", np.clip(depths[i] * 1000.0, 0, 65535).astype(np.uint16))
+        for kind in ("ascii", "binary"):
+            errs, fits = [], []
+            for i in range(FRAMES):
+                out, _, counts = cli_call(["cuboid", "--depth", tmp / f"bench{i}.png", "--depth-scale", "0.001",
+                                           "--template", tmp / f"{kind}.pcd"])
+                require(counts == one_k1, f"cli cuboid: launches {counts}, expected one K1 launch")
+                launches["cuboid"] += counts["ransac_score"]
+                res = out[-1]
+                errs.append(float(np.linalg.norm(np.asarray(res["pose"])[:3, 3] - gts[i][:3, 3])))
+                fits.append(res["fitness"])
+                require(res["accepted"], f"cli cuboid ({kind} template): frame {i} not accepted")
+            print(f"cli cuboid ({kind} PCD template, mm PNGs): {FRAMES}/{FRAMES} accepted, translation error mm "
+                  f"{np.round(np.array(errs) * 1e3, 2).tolist()}, fitness max {max(fits):.3e}, one K1 launch a call")
+            require(max(errs) <= 0.02, f"cli cuboid ({kind} template): translation error over 2 cm")
+
+        # objects: the clutter scene at 640x480, each class's template.
+        poses = standard_clutter_poses()
+        write_png(tmp / "clutter.png",
+                  np.clip(render_depth_clutter(camera, poses, seed=3) * 1000.0, 0, 65535).astype(np.uint16))
+        depth = torch.from_numpy(depth_from_u16(read_png(tmp / "clutter.png"), 0.001)).to(device)
+        pts, mask = camera.backproject_depth(depth)
+        for name in OBJ_CLASSES:
+            t = captured_template(name, camera)
+            write_pcd(tmp / f"{name}.pcd", t, binary=True)
+            out, sec, counts = cli_call(["objects", "--depth", tmp / "clutter.png", "--template", tmp / f"{name}.pcd"])
+            require(counts == one_k1, f"cli objects {name}: launches {counts}, expected one K1 launch")
+            launches["objects"] += counts["ransac_score"]
+            res = out[-1]
+            err = chamfer_cm(t, np.asarray(res["pose"], np.float64), poses[name])
+            mem = detect_object(pts, mask, torch.from_numpy(t).to(device),
+                                torch.ones(len(t), dtype=torch.bool, device=device),
+                                torch.Generator(device=device).manual_seed(0), ObjectConfig())
+            mem = type(mem)(*(x.cpu() for x in mem))
+            same = (res["success"] == bool(mem.success) and res["size_diff"] == int(mem.size_diff)
+                    and res["cluster_sizes"] == mem.cluster_sizes.tolist())
+            dt = float(np.linalg.norm(np.asarray(res["pose"])[:3, 3] - mem.pose[:3, 3].numpy()))
+            success, cluster, diff, sizes, ref_err = OBJ_CLI_JAX_REFERENCE[name]
+            print(f"cli objects [{name}]: success {res['success']}, cluster {int(mem.cluster_id)} (in memory), size "
+                  f"diff {res['size_diff']}, clusters {res['num_clusters']} sizes {res['cluster_sizes']}, chamfer "
+                  f"{err:.3f} cm; JAX CLI: cluster {cluster}, size diff {diff}, sizes {sizes}, chamfer {ref_err} cm; "
+                  f"in memory: same answer {same}, translation diff {dt * 1e3:.4f} mm; {sec:.2f} s a call")
+            require(same and dt <= 1e-3, f"cli objects {name}: the CLI and the in-memory call disagree")
+            require((res["success"], int(mem.cluster_id), res["size_diff"], res["cluster_sizes"])
+                    == (success, cluster, diff, sizes), f"cli objects {name}: the answer differs from the JAX CLI's")
+            require(abs(err - ref_err) <= 0.05 and (ref_err >= 1.0) == (err >= 1.0),
+                    f"cli objects {name}: chamfer {err:.3f} cm against the JAX CLI's {ref_err} cm")
+
+        # The SLAM scene's sweep as a TUM sequence.
+        cam, gt, grays, depths_s = scene
+        seq_dir = tmp / "sweep"
+        t0 = time.perf_counter()
+        write_tum_sequence(seq_dir, cam, list(gt), render=lambda i: (grays[i], depths_s[i]))
+        n_files = len(list(seq_dir.glob("*/*.png")))
+        print(f"TUM sweep: {len(gt)} frames at {cam.width}x{cam.height} written in {time.perf_counter() - t0:.1f} s "
+              f"({n_files} PNGs, {sum(f.stat().st_size for f in seq_dir.rglob('*')) / 2**20:.1f} MiB)")
+        seq = TumSequence(seq_dir)
+        blobs = {kind: [(seq_dir / rows[1][0]).read_bytes() for rows in lst]
+                 for kind, lst in (("depth", seq.depth_list), ("rgb", seq.rgb_list))}
+        decode_ms = {}
+        for kind, color in (("depth", False), ("rgb", True)):
+            t0 = time.perf_counter()
+            for b in blobs[kind]:
+                decode_png(b, color=color)
+            decode_ms[kind] = (time.perf_counter() - t0) * 1e3 / len(blobs[kind])
+        t0 = time.perf_counter()
+        for b in blobs["depth"][:3]:
+            decode_png(b, native=False)
+        decode_ms["depth numpy"] = (time.perf_counter() - t0) * 1e3 / 3
+        filtered = {}
+        frame16 = decode_png(blobs["depth"][0])
+        for f in range(5):
+            data = encode_png(frame16, filter_type=f)
+            t0 = time.perf_counter()
+            for _ in range(10):
+                decode_png(data)
+            filtered[f] = (time.perf_counter() - t0) * 1e2
+        print(f"PNG decode (host, native unfilter): {decode_ms['depth']:.3f} ms a {cam.width}x{cam.height} "
+              f"16-bit depth frame, "
+              f"{decode_ms['rgb']:.3f} ms an RGB frame (means over {len(blobs['depth'])}); numpy unfilter "
+              f"{decode_ms['depth numpy']:.3f} ms a depth frame; a depth frame with every row filtered None/Sub/Up/"
+              f"Average/Paeth: {[round(filtered[f], 3) for f in range(5)]} ms")
+
+        # The sequence's read + decode rate, in order and through the
+        # read-ahead, in turns (in order, read-ahead, read-ahead, in order).
+        files = []
+        for i in range(len(seq)):
+            files.append((seq_dir / seq.depth_list[i][1][0], False))
+            files.append((seq_dir / seq.rgb_list[seq.rgb_of_depth[i]][1][0], True))
+        read_rates = {True: [], False: []}
+        for ahead in (False, True, True, False):
+            t0 = time.perf_counter()
+            if ahead:
+                stream = runtime.FramePrefetcher([p for p, _ in files], threads=2, ring=8)
+                for (_, color), raw in zip(files, stream):
+                    decode_png(raw, color=color)
+                stream.close()
+            else:
+                for p, color in files:
+                    decode_png(p.read_bytes(), color=color)
+            read_rates[ahead].append(len(seq) / (time.perf_counter() - t0))
+        print(f"TUM sweep read + decode (depth and RGB, host): in order {[round(r, 2) for r in read_rates[False]]} "
+              f"frames/s, through the native read-ahead {[round(r, 2) for r in read_rates[True]]} frames/s")
+
+        rates = {}
+        camera_s = sequence_camera(seq_dir)
+        for cmd, frames in (("odometry", CLI_ODO_FRAMES), ("slam", CLI_SLAM_FRAMES)):
+            # In memory first, on the decoded arrays (it also warms the path for the timed CLI run).
+            mem = list(seq.frames(0, frames))
+            d = torch.from_numpy(np.stack([np.nan_to_num(f.depth) for f in mem])).to(device)
+            if cmd == "odometry":
+                mem_poses, _ = run_odometry(camera_s, d, OdometryConfig())
+            else:
+                g = torch.from_numpy(np.stack([f.rgb.mean(-1).astype(np.float32) for f in mem])).to(device)
+                state, mem_poses, _ = run_slam(camera_s, d, g, SlamConfig())
+                print(f"slam --tum in memory: keyframes {int(state.keyframes.count)}, loop closures "
+                      f"{int(((state.edges.weight == 2.0) & state.edges.mask).sum())}")
+            mem_poses = torch.stack(mem_poses).cpu().numpy()
+            out, sec, counts = cli_call([cmd, "--tum", seq_dir, "--max-frames", frames, "--out", tmp / f"{cmd}.txt"])
+            rates[cmd] = frames / sec
+            ate_row = out[-1]
+            print(f"cli {cmd} --tum: {ate_row}, {frames / sec:.2f} frames/s from files ({sec:.1f} s), "
+                  f"launches {counts}")
+            require(counts == none, f"cli {cmd}: kernel launches {counts}, expected none")
+            require(ate_row.get("metric") == "ate_rmse_m" and ate_row["frames"] == frames
+                    and ate_row["value"] <= 0.02, f"cli {cmd}: ATE over 2 cm or missing")
+            ts, file_poses = read_trajectory(tmp / f"{cmd}.txt")
+            want_ts = np.array([t for t, _ in seq.depth_list[:frames]])
+            require(file_poses.shape == (frames, 4, 4) and np.array_equal(ts, want_ts),
+                    f"cli {cmd}: the --out trajectory does not read back")
+            dt, dr = pose_diff(file_poses, mem_poses)
+            print(f"cli {cmd} --out against {'run_odometry' if cmd == 'odometry' else 'run_slam'} on the "
+                  f"decoded arrays: translation diff max {dt * 1e3:.6f} mm, rotation entry diff max {dr:.3e}")
+            require(dt <= CLI_POSE_TOL and dr <= CLI_POSE_TOL, f"cli {cmd}: file and in-memory poses differ")
+            step_ms = 1e3 / rates[cmd]
+            require(decode_ms["depth"] + decode_ms["rgb"] * (cmd == "slam") < step_ms,
+                    f"cli {cmd}: PNG decode slower than a step ({step_ms:.2f} ms)")
+
+        # pose: a fixture scene as an 8-bit PNG.
+        img = render_people(sample_skeletons(np.random.default_rng(POSE_SEED), FIXTURE_HW), FIXTURE_HW)
+        write_png(tmp / "people.png", np.clip(np.round(img * 255.0), 0, 255).astype(np.uint8))
+        out, _, counts = cli_call(["pose", "--image", tmp / "people.png", "--out-json", tmp / "people.json"])
+        require(counts == none, f"cli pose: kernel launches {counts}, expected none")
+        doc = json.loads((tmp / "people.json").read_text())
+        engine = Perception(pose=WrapperStructPose(topology=FIXTURE_TOPOLOGY, net_hw=FIXTURE_HW), device=device)
+        ppl = engine.emplace_and_pop(read_png(tmp / "people.png", color=True).astype(np.float32) / 255.0).people
+        keep = ppl.mask.cpu().numpy()
+        want = ppl.keypoints.cpu().numpy()[keep].reshape(int(keep.sum()), -1)
+        got = np.array([p["pose_keypoints_2d"] for p in doc["people"]]).reshape(len(doc["people"]), -1)
+        kp = float(np.abs(got - want).max()) if got.shape == want.shape else float("inf")
+        print(f"cli pose --image: {out[-1]}, --out-json people {len(doc['people'])}, in memory {int(keep.sum())}, "
+              f"keypoints max diff {kp:.3e} px")
+        require(len(doc["people"]) == out[-1]["people"] == int(keep.sum()) >= 1 and kp <= POSE_KP_TOL,
+                "cli pose: the people differ from the in-memory facade's")
+
+    print(f"cli frames/s from files: odometry {rates['odometry']:.2f}, slam {rates['slam']:.2f}; read + decode "
+          f"frames/s in order / read-ahead: {statistics.median(read_rates[False]):.2f} / "
+          f"{statistics.median(read_rates[True]):.2f}; native_available() {runtime.native_available()}")
+    print(f"cli phase: {time.perf_counter() - t_phase:.1f} s")
+    return launches
+
+
 def json_times(t):
     """A kernel's times for the JSON line: ``ms`` the eager wrapper call,
     ``device_ms`` its device time by graph replay. No single PyTorch call
@@ -2226,6 +2506,7 @@ def main() -> int:
           f"rendered in {time.perf_counter() - t0:.1f} s")
     odo_launches, _ = run_odometry_paths(device, scene)
     slam_launches = run_slam_paths(device, scene)
+    cli_launches = run_cli(device, scene)
     del scene
     mode_launches = run_cuboid_modes(device)
     obj_launches = run_objects(device)
@@ -2256,10 +2537,12 @@ def main() -> int:
             **json_times(k1_times[bn]),
             "floor_ms": k1_times[bn]["floor_ms"],
         } for shape, launches, bn in (
-            ("B=1 N=8192 K=1024 (cuboid, one frame a call)", cuboid_b1_launches, (1, 8192)),
+            ("B=1 N=8192 K=1024 (cuboid, one frame a call; with cli cuboid's)",
+             cuboid_b1_launches + cli_launches["cuboid"], (1, 8192)),
             ("B=8 N=8192 K=1024 (cuboid batches: default, cc, p2p; with pcl_parity's one B=2 call)",
              cuboid_b8_launches + mode_launches, (8, 8192)),
-            ("B=1 N=32768 K=1024 (detect_object)", obj_launches, (1, 32768)),
+            ("B=1 N=32768 K=1024 (detect_object; with cli objects')", obj_launches + cli_launches["objects"],
+             (1, 32768)),
             ("B=1 N=24576 K=1024 (tracker)", track_launches, (1, 24576)),
         )),
         {

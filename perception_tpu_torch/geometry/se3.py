@@ -154,6 +154,28 @@ def rotate_points(T: torch.Tensor, vectors: torch.Tensor) -> torch.Tensor:
     return vectors @ T[..., :3, :3].transpose(-1, -2)
 
 
+def quat_to_matrix(q: torch.Tensor) -> torch.Tensor:
+    """Quaternion (..., 4) in (x, y, z, w) order (tf convention) -> (..., 3, 3).
+
+    The norm is summed as XLA fuses ``jnp.linalg.norm``: a float32 FMA
+    chain over the four squares, emulated in float64 (a product of two
+    float32 values is exact there) with one rounding to float32 a step."""
+    q64 = q.double()
+    acc = (q64[..., 0] * q64[..., 0]).float()
+    for i in (1, 2, 3):
+        acc = (q64[..., i] * q64[..., i] + acc.double()).float()
+    q = q / torch.sqrt(acc)[..., None]
+    x, y, z, w = q[..., 0], q[..., 1], q[..., 2], q[..., 3]
+    return torch.stack(
+        [
+            torch.stack([1 - 2 * (y * y + z * z), 2 * (x * y - z * w), 2 * (x * z + y * w)], dim=-1),
+            torch.stack([2 * (x * y + z * w), 1 - 2 * (x * x + z * z), 2 * (y * z - x * w)], dim=-1),
+            torch.stack([2 * (x * z - y * w), 2 * (y * z + x * w), 1 - 2 * (x * x + y * y)], dim=-1),
+        ],
+        dim=-2,
+    )
+
+
 def matrix_to_quat(R: torch.Tensor) -> torch.Tensor:
     """Rotation matrix (..., 3, 3) -> quaternion (..., 4), (x, y, z, w).
 

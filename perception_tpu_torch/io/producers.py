@@ -2,14 +2,16 @@
 
 Counterpart of part of ``perception_tpu/io/producers.py``: the video
 file reader (``cv2``, imported on use), the sorted image-directory
-reader and ``paced``, the fps-keeping wrapper. Each yields (timestamp,
-RGB uint8 frame).
+reader (PNG through the port's own codec, read ahead by the native
+prefetcher) and ``paced``, the fps-keeping wrapper. Each yields
+(timestamp, frame).
 """
 
 from __future__ import annotations
 
 import glob
 import time
+import zlib
 from pathlib import Path
 from typing import Iterator, Tuple
 
@@ -47,29 +49,46 @@ class VideoReader:
 
 
 class ImageDirectoryReader:
-    """Sorted image-directory stream (OpenPose's ImageDirectoryReader).
+    """Sorted image-directory stream (OpenPose's ImageDirectoryReader) of
+    PNG files, with the JAX reader's frames: ``io/png.read_png``'s arrays
+    (``cv2.imread(IMREAD_UNCHANGED)``) with the channel order reversed as
+    the JAX reader reverses cv2's (RGB for colour files; its BGRA -> ARGB
+    for four channels) and the file's index as its timestamp. With
+    ``prefetch`` the native prefetcher (``runtime.FramePrefetcher``) reads
+    the files ahead on its threads; decoding stays on the caller's
+    thread. A file that cannot be read or decoded is skipped."""
 
-    The JAX package reads ahead through its native prefetch ring
-    (``runtime.FramePrefetcher``), which is not ported; this reader
-    decodes the files one after another and yields the same frames, with
-    the same indices as timestamps (an unreadable file is skipped)."""
-
-    def __init__(self, directory, pattern: str = "*.png"):
+    def __init__(self, directory, pattern: str = "*.png", prefetch: bool = True):
         self.paths = sorted(glob.glob(str(Path(directory) / pattern)))
+        self.prefetch = prefetch
 
     def __len__(self) -> int:
         return len(self.paths)
 
     def frames(self) -> Iterator[Tuple[float, np.ndarray]]:
-        import cv2
+        from perception_tpu_torch.io.png import decode_png
+        from perception_tpu_torch.runtime import FramePrefetcher
 
-        for i, p in enumerate(self.paths):
-            img = cv2.imread(p, cv2.IMREAD_UNCHANGED)
-            if img is None:
+        if self.prefetch and self.paths:
+            files = FramePrefetcher(self.paths, threads=2, ring=4)
+        else:
+            files = map(_read_bytes, self.paths)
+        for i, raw in enumerate(files):
+            try:
+                img = decode_png(raw)
+            except (ValueError, zlib.error):
                 continue
-            if img.ndim == 3:
-                img = img[..., ::-1]
+            if img.ndim == 3 and img.shape[-1] == 4:
+                img = img[..., [3, 0, 1, 2]]  # cv2's BGRA reversed
             yield float(i), np.ascontiguousarray(img)
+
+
+def _read_bytes(path) -> bytes:
+    """A file's bytes, or b"" where it cannot be read (the prefetcher's rule)."""
+    try:
+        return Path(path).read_bytes()
+    except OSError:
+        return b""
 
 
 def paced(frames, target_fps: float, drop: bool = True):

@@ -297,7 +297,8 @@ def decimate(depth: torch.Tensor, camera: PinholeCamera, stride: int):
     o = stride // 2
     depth = depth[..., o::stride, o::stride]
     s, of = np.float32(stride), np.float32(o)
-    camera = PinholeCamera(
+    camera = dataclasses.replace(
+        camera,
         fx=np.float32(camera.fx) / s, fy=np.float32(camera.fy) / s,
         cx=(np.float32(camera.cx) - of) / s, cy=(np.float32(camera.cy) - of) / s,
         width=depth.shape[-1], height=depth.shape[-2],

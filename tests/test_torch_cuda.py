@@ -50,7 +50,14 @@ people and slots, keypoints and face landmarks within 1e-3 px, head poses
 within 1e-4, hand landmarks within 1e-2 px); ``tracker_step`` over 4
 frames of ``person_scene`` (ids equal, keypoints within 1e-3 px), and its
 slot collision repeated 20 times with one result.
+The command line and its file I/O, on the card's host: the native host
+library builds; the PNG decoder's native and numpy unfilters agree
+bit for bit (no cv2 there); ``ImageDirectoryReader`` yields the same
+frames with and without the prefetcher; ``cli odometry`` without
+``--cpu`` runs every step on the card.
 """
+
+from pathlib import Path
 
 import numpy as np
 import pytest
@@ -609,3 +616,58 @@ def test_cuda_tracker_step_matches_cpu_and_repeats(cuda_device):
                for _ in range(20)}
     assert len(results) == 1
     assert np.allclose(next(iter(results)), [43.0, 100.0], atol=1e-2)
+
+
+TUM_MINI = Path(__file__).parent / "fixtures" / "tum_mini"
+
+
+def test_cuda_host_native_library_builds(cuda_device):
+    from perception_tpu_torch import runtime
+
+    runtime.build_native()
+    assert runtime.native_available()
+
+
+def test_cuda_host_png_decode_without_cv2_matches_numpy_path(cuda_device, tmp_path):
+    """The native unfilter against the numpy one on tum_mini and on a
+    640x480 depth frame written with each filter type."""
+    from perception_tpu_torch.io import png
+
+    files = sorted(TUM_MINI.glob("*/*.png"))
+    img = np.random.default_rng(0).integers(0, 65535, (480, 640)).astype(np.uint16)
+    for f in range(5):
+        png.write_png(tmp_path / f"depth{f}.png", img, filter_type=f)
+        files.append(tmp_path / f"depth{f}.png")
+    for path in files:
+        data = path.read_bytes()
+        for color in (False, True):
+            a, b = png.decode_png(data, color=color), png.decode_png(data, color=color, native=False)
+            assert a.dtype == b.dtype and np.array_equal(a, b)
+    assert np.array_equal(png.read_png(tmp_path / "depth4.png"), img)
+
+
+def test_cuda_host_image_directory_prefetch_matches(cuda_device):
+    from perception_tpu_torch.io.producers import ImageDirectoryReader
+
+    got = {p: list(ImageDirectoryReader(TUM_MINI / "rgb", prefetch=p).frames()) for p in (True, False)}
+    assert len(got[True]) == len(got[False]) == 30
+    for (ta, a), (tb, b) in zip(got[True], got[False]):
+        assert ta == tb and a.shape == (120, 160, 3) and np.array_equal(a, b)
+
+
+def test_cuda_cli_runs_on_the_card_by_default(cuda_device, monkeypatch, capsys):
+    """Without --cpu every step of odometry gets its depth on the card."""
+    from perception_tpu_torch import cli
+    from perception_tpu_torch.models.slam import odometry
+
+    devices = []
+    real = odometry.odometry_step
+
+    def step(state, depth, camera, cfg):
+        devices.append((state.pose.device.type, depth.device.type))
+        return real(state, depth, camera, cfg)
+
+    monkeypatch.setattr(odometry, "odometry_step", step)
+    cli.main(["odometry", "--tum", str(TUM_MINI), "--max-frames", "4"])
+    assert devices == [("cuda", "cuda")] * 3
+    assert '"metric": "ate_rmse_m"' in capsys.readouterr().out
