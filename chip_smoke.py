@@ -6,8 +6,9 @@ plain PyTorch version at the shapes its path gives it: K1, fused RANSAC
 scoring, bit-exact (B=1 and 8 at N=8192 for the cuboid, 32768 for the
 detection service, 24576 for the tracker, and K=1023, B=3 edges; random
 points, and points exactly at +-tau, one ulp past it, -0.0, NaN and +-inf,
-valid and masked), its launch plan printed and held to at least 8 warps
-an SM at the four path shapes; K2, the fused Gauss-Newton ICP system,
+valid and masked; and B=1 N=8192 K=512 for the surface frame), its launch
+plan printed and held to at least 8 warps an SM at the four K=1024 path
+shapes (K=512 is exempt: 128 blocks, 7.76 warps an SM); K2, the fused Gauss-Newton ICP system,
 with equal gate counts and M within rtol/atol 1e-4; K3+K4, the voxel-hash query,
 bit-exact below and above 49152 table rows. Then drives the port's
 paths through their entry points, each with the kernels' launch counts
@@ -39,8 +40,10 @@ set to 0 just before it and read just after:
   ``benchmarks/objects_bench.py``'s setting (the 640x480 clutter scene, the
   four captured class templates and a plate that matches nothing): success
   and chamfer error per class, the plate rejected, the card against the
-  CPU on the same triplets, the host syncs held to the stated count, ms
-  per call;
+  CPU on the same triplets, the eraser 20 times on the card (every call
+  the same pose) and 20 on the CPU in a worker process beside the run
+  (the spread of its chamfer and of the card-CPU translation), the host
+  syncs held to the stated count, ms per call;
 - the streaming tracker through ``track_step_from_depth`` in
   ``benchmarks/tracking_bench.py``'s setting (300 frames at 640x480, three
   cuboids): frames/s, median and p90 error, latched and warm shares,
@@ -77,6 +80,23 @@ set to 0 just before it and read just after:
   ``TrackerConfig()``'s defaults over 60 frames of 8 BODY_25 people with
   padding rows on a shifting 480x640 texture: no id switch, ids and
   keypoints card against CPU, no host sync, ms a step;
+- the reference's cuboid_detection leaf nodes on the 8 bench frames at
+  640x480 with a seeded colour image (the box painted red on a texture):
+  ``detect_red_object`` (the rectangle equal to scipy's opening of the red
+  pixels), ``project_bbox`` (the box's corners inside it),
+  ``filter_by_rect`` on the decimated cloud (every box point kept),
+  ``segment_ground_plane`` and ``estimate_surface_frame`` (exactly 3 K1
+  launches at B=1 N=8192 K=512 a frame; orthonormal, det > 0.99, origin
+  within 5 cm; valid on tests/test_models.py's tabletop scene), card
+  against CPU on the same inputs and triplets, host syncs (the 3 eighs),
+  ms a frame and a stage;
+- OpenPose's 3-D chain: 48 rendered 640x480 views of a 9x6 board (4
+  cameras x 12 poses) through ``detect_chessboard_native``,
+  ``calibrate_camera`` a camera, ``pairwise_extrinsics`` and
+  ``joint_extrinsics_refine`` (C=4, B=12, P=54), 8 BODY_25 people through
+  ``triangulate``, ``fit_body_from_body25`` and ``save_bvh``, and a
+  ``StereoCamera`` round trip, with the JAX tests' gates, card against CPU
+  and each entry point's host syncs;
 - the command line from files (``run_cli``, right after the SLAM phase,
   on its rendered sweep), through ``perception_tpu_torch.cli.main`` with
   the native host library built and required: ``cuboid`` on the 8 bench
@@ -120,6 +140,7 @@ import contextlib
 import dataclasses
 import itertools
 import json
+import multiprocessing
 import statistics
 import subprocess
 import sys
@@ -131,13 +152,15 @@ import torch
 
 FRAMES = 8
 K1_TIMED = ((1, 8192), (8, 8192), (1, 32768), (1, 24576))  # the path shapes (B, N) at K=1024
+K1_SURFACE = (1, 8192, 512)  # (B, N, K): estimate_surface_frame's three fits on the work cloud
 KERNEL_SHAPES = [  # (B, N, K, inputs): "random", "edges" (k1_edge_inputs) or "all masked"
     *((b, n, 1024, inputs) for b, n in K1_TIMED for inputs in ("random", "edges")),
     *((b, n, k, inputs) for b, n, k in ((1, 777, 100), (3, 777, 100), (1, 8192, 1023))
       for inputs in ("random", "edges")),
     (1, 8192, 1024, "all masked"),
+    *((*K1_SURFACE, inputs) for inputs in ("random", "edges")),
 ]
-K1_MIN_WARPS_PER_SM = 8  # what K1's launch plan must give each path shape
+K1_MIN_WARPS_PER_SM = 8  # what K1's launch plan must give each path shape (K1_SURFACE exempt: check_kernel)
 K1_INSTRUCTIONS = 8      # a pair: 3 multiplies, 3 adds, the compare, the count (no FMA)
 TAU = 0.015
 KERNELS = ("ransac_score", "icp_gn", "voxelhash_query")
@@ -244,6 +267,16 @@ PERSON_SHIFT = 2         # px a frame, the texture and the people
 CLI_ODO_FRAMES = 300     # cli odometry --tum over the whole 640x480 sweep
 CLI_SLAM_FRAMES = 300    # cli slam --tum over the whole sweep
 CLI_POSE_TOL = 1e-4      # m and rotation entries: the --out file (6 decimals) against the in-memory run
+LEAF_SEED = 40           # leaf_rgb's textures: numpy's default_rng(LEAF_SEED + frame)
+CHAIN_CAMERAS = 4
+CHAIN_BOARDS = 12
+CHAIN_ROWS, CHAIN_COLS, CHAIN_SQUARE = 6, 9, 0.06  # a 9x6 inner-corner board of 6 cm squares
+CHAIN_SEED = 7           # board poses: numpy's default_rng(CHAIN_SEED); noise and people from +1, +2
+CHAIN_NOISE_PX = 0.3     # corner noise added to the detections (tests/test_calibration.py's)
+CHAIN_PEOPLE = 8
+CHAIN_BVH_FRAMES = 30
+ERASER_CALLS = 20        # detect_object calls of the eraser on the same triplets, card and CPU
+ERASER_CPU_THREADS = 3   # the CPU calls' worker process, beside the whole run on the 8-core host
 
 
 def require(ok, message):
@@ -404,6 +437,14 @@ def check_kernel(device):
         print(f"K1 launch plan at B={b} N={n} K=1024 on {sms} SMs: {plan}")
         require(plan.warps_per_sm >= K1_MIN_WARPS_PER_SM,
                 f"K1 launches under {K1_MIN_WARPS_PER_SM} warps an SM at {(b, n)}")
+    # The surface frame's shape is exempt: at K=512 there are 4 hypothesis
+    # blocks, and one chunk a split (the plan's floor) gives 32 splits, so
+    # 128 blocks on 132 SMs, 7.76 warps an SM. Raising it needs another
+    # tiling of K1 (a redesign), not another plan.
+    b, n, k = K1_SURFACE
+    plan = launch_plan(b, n, k, sms)
+    print(f"K1 launch plan at B={b} N={n} K={k} on {sms} SMs: {plan} (exempt from the "
+          f"{K1_MIN_WARPS_PER_SM} warps an SM: one chunk a split is the plan's floor)")
     worst = 0
     for b, n, k, inputs in KERNEL_SHAPES:
         pts, mask, hyp = k1_inputs(b, n, k, inputs, device)
@@ -454,6 +495,17 @@ def time_kernel(device):
         times[(b, n)]["floor_ms"] = floor
         print(f"  K1 issue-rate floor at {clock / 1e6:.0f} MHz: {floor:.5f} ms, device share of floor "
               f"{floor / times[(b, n)]['device_ms']:.3f}")
+    b, n, k = K1_SURFACE
+    pts, mask, hyp = kernel_inputs(b, n, k, False, device, seed=1)
+    times[K1_SURFACE] = timed(f"K1 ransac_score (B={b}, N={n}, K={k}, surface frame)",
+                              lambda: ransac_score(pts, mask, hyp, TAU),
+                              lambda: ransac_score_reference(pts, mask, hyp, TAU),
+                              lambda: (9 * b * n * k, nbytes(pts, mask, hyp) + 4 * b * k),
+                              plain_iters=20)
+    floor = k1_floor_ms(b, n, k, sm_count(device.index), clock)
+    times[K1_SURFACE]["floor_ms"] = floor
+    print(f"  K1 issue-rate floor at {clock / 1e6:.0f} MHz: {floor:.5f} ms, device share of floor "
+          f"{floor / times[K1_SURFACE]['device_ms']:.3f}")
     return times
 
 
@@ -1212,17 +1264,16 @@ def chamfer_cm(template, est, gt):
     return float(cKDTree(b).query(a)[0].mean() * 100.0)
 
 
-def run_objects(device):
-    """benchmarks/objects_bench.py's setting through ``detect_object``: the
-    full D435 camera at 640x480, the clutter scene at seed 3,
-    ObjectConfig(cluster_min_size=40, size_gate=250), the four captured
-    class templates and a 0.3 x 0.3 x 0.02 m plate that matches no object.
-    Returns the K1 launches of the counted calls."""
+def objects_scene():
+    """benchmarks/objects_bench.py's setting on the CPU: the full D435
+    camera at 640x480, the clutter scene at seed 3, ObjectConfig(
+    cluster_min_size=40, size_gate=250), the four captured class templates
+    and a 0.3 x 0.3 x 0.02 m plate that matches no object, and the RANSAC
+    triplets that the card and the CPU share."""
     from perception_tpu_torch.bench.clutter_scene import captured_template, render_depth_clutter, standard_clutter_poses
     from perception_tpu_torch.geometry.camera import PinholeCamera
     from perception_tpu_torch.io.templates import box_surface_template
-    from perception_tpu_torch.models.objects import ObjectConfig, detect_object, working_set
-    from perception_tpu_torch.ops import icp, ransac
+    from perception_tpu_torch.models.objects import ObjectConfig, working_set
     from perception_tpu_torch.ops.ransac import _sample_indices
 
     camera = PinholeCamera.d435_depth()
@@ -1231,6 +1282,31 @@ def run_objects(device):
     templates = {name: captured_template(name, camera) for name in OBJ_CLASSES}
     templates["plate"] = box_surface_template((0.3, 0.3, 0.02), 0.003)
     cfg = ObjectConfig(cluster_min_size=40, size_gate=250)
+    _, dm, _ = working_set(pts_cpu, mask_cpu, cfg)
+    idx = _sample_indices(torch.Generator().manual_seed(11), dm, cfg.ransac_hypotheses)
+    return dict(camera=camera, poses=poses, pts_cpu=pts_cpu, mask_cpu=mask_cpu, templates=templates, cfg=cfg, idx=idx)
+
+
+def start_eraser_cpu(scene):
+    """Start the eraser's ERASER_CALLS CPU calls of ``detect_object`` (the
+    scene's triplets) in a worker process on ERASER_CPU_THREADS threads, to
+    run beside the card's phases; ``eraser_spread`` collects them."""
+    t = scene["templates"]["eraser"]
+    host_in = (scene["pts_cpu"], scene["mask_cpu"], torch.from_numpy(t), torch.ones(len(t), dtype=torch.bool))
+    pool = multiprocessing.get_context("spawn").Pool(1)
+    job = pool.apply_async(eraser_cpu_poses, (host_in, scene["idx"], scene["cfg"], ERASER_CALLS, ERASER_CPU_THREADS))
+    return pool, job
+
+
+def run_objects(device, scene, eraser_cpu):
+    """benchmarks/objects_bench.py's setting (``objects_scene``) through
+    ``detect_object``. Returns the K1 launches of the counted calls and
+    the eraser's repeated calls for ``eraser_spread``."""
+    from perception_tpu_torch.models.objects import detect_object
+    from perception_tpu_torch.ops import icp, ransac
+
+    camera, poses, pts_cpu, mask_cpu, templates, cfg, idx = (
+        scene[k] for k in ("camera", "poses", "pts_cpu", "mask_cpu", "templates", "cfg", "idx"))
     pts, mask = pts_cpu.to(device), mask_cpu.to(device)
     on_card = {name: (torch.from_numpy(t).to(device), torch.ones(len(t), dtype=torch.bool, device=device))
                for name, t in templates.items()}
@@ -1266,8 +1342,6 @@ def run_objects(device):
                 f"objects {name}: chamfer {err:.3f} cm against the JAX package's {ref_err} cm")
 
     # The card against the port's CPU path, with the same RANSAC triplets.
-    _, dm, _ = working_set(pts_cpu, mask_cpu, cfg)
-    idx = _sample_indices(torch.Generator().manual_seed(11), dm, cfg.ransac_hypotheses)
     for name in OBJ_CPU_CLASSES:
         t0 = time.perf_counter()
         c = detect_object(pts_cpu, mask_cpu, torch.from_numpy(templates[name]),
@@ -1282,6 +1356,15 @@ def run_objects(device):
               f"translation diff {dt * 1e3:.6f} mm (cpu call {cpu_s:.1f} s)")
         require(same, f"objects {name}: CUDA and CPU disagree")
         require(dt <= 1e-3, f"objects {name}: CUDA and CPU poses differ by more than 1 mm")
+
+    # The eraser ERASER_CALLS times on the same triplets on the card; its CPU
+    # calls run in the worker process that start_eraser_cpu started.
+    t0 = time.perf_counter()
+    card = [detect_object(pts, mask, *on_card["eraser"], None, cfg, indices=idx).pose.cpu().numpy().astype(np.float64)
+            for _ in range(ERASER_CALLS)]
+    pool, job = eraser_cpu
+    pending = dict(pool=pool, job=job, card=card, card_s=time.perf_counter() - t0, template=templates["eraser"],
+                   gt=poses["eraser"])
 
     # Host syncs of one call: 2 in each ICP trip's batched SVD, the ICP's
     # done.all() read every DONE_CHECK_EVERY trips, 1 in the plane refit's eigh.
@@ -1318,7 +1401,43 @@ def run_objects(device):
     busy, wall, by_name, _ = device_profile(lambda: detect_object(pts, mask, *on_card["eraser"], gen, cfg), 2)
     print(f"objects [eraser] profile (torch.profiler, 2 calls): device busy share {busy:.4f}, wall {wall:.2f} ms "
           f"a call, top device ms a call {top_ms(by_name)}")
-    return counts["ransac_score"]
+    return counts["ransac_score"], pending
+
+
+def eraser_cpu_poses(host_in, idx, cfg, calls, threads):
+    """``detect_object`` of the eraser ``calls`` times on the CPU with the
+    triplets ``idx`` (a worker process's job, on ``threads`` threads):
+    (poses as float64 arrays, seconds)."""
+    from perception_tpu_torch.models.objects import detect_object
+
+    torch.set_num_threads(threads)
+    t0 = time.perf_counter()
+    poses = [detect_object(*host_in, None, cfg, indices=idx).pose.numpy().astype(np.float64) for _ in range(calls)]
+    return poses, time.perf_counter() - t0
+
+
+def eraser_spread(pool, job, card, card_s, template, gt):
+    """The eraser's repeated calls on the card and on the CPU (same
+    triplets): the spread of the chamfer on each, and of each card call's
+    translation from the first CPU call's. Fails where a card call lies
+    over 1 mm from the CPU, or where two card calls differ."""
+    try:
+        cpu, cpu_s = job.get(timeout=900)
+    finally:
+        pool.close()
+        pool.join()
+    for dev, out, secs in (("cuda", card, card_s), ("cpu", cpu, cpu_s)):
+        ch = [chamfer_cm(template, pose, gt) for pose in out]
+        print(f"objects [eraser] x {len(out)} on {dev} (same triplets): chamfer min {min(ch):.6f} max {max(ch):.6f} "
+              f"cm, {len(set(np.round(ch, 9)))} distinct values ({secs:.1f} s)")
+    gaps = np.linalg.norm(np.stack([p[:3, 3] for p in card]) - cpu[0][:3, 3], axis=-1) * 1e3
+    print(f"objects [eraser] card - cpu translation over {len(card)} card calls: min {gaps.min():.6f} max "
+          f"{gaps.max():.6f} mm, values {sorted(set(np.round(gaps, 6).tolist()))}; cpu calls all equal "
+          f"{all(np.array_equal(p, cpu[0]) for p in cpu)}")
+    require(gaps.max() <= 1.0, "objects eraser: a card call lies over 1 mm from the CPU's")
+    # The centroid sums are fixed-order (ops/points.segment_sum): every card
+    # call gives the same pose, where float atomics gave two modes.
+    require(all(np.array_equal(p, card[0]) for p in card), "objects eraser: the card's calls differ")
 
 
 def run_cuboid_modes(device):
@@ -1568,6 +1687,20 @@ def event_ms(fn, reps=TIMED_REPS, calls=TIMED_CALLS):
         stop.record()
         torch.cuda.synchronize()
         runs.append(start.elapsed_time(stop) / calls)
+    return statistics.median(runs), min(runs), max(runs)
+
+
+def sync_ms(fn, reps=3):
+    """(median, min, max) host-clock ms of one synchronized ``fn()`` call
+    over ``reps`` calls after a warm-up (for calls that read the card)."""
+    fn()
+    torch.cuda.synchronize()
+    runs = []
+    for _ in range(reps):
+        t0 = time.perf_counter()
+        fn()
+        torch.cuda.synchronize()
+        runs.append((time.perf_counter() - t0) * 1e3)
     return statistics.median(runs), min(runs), max(runs)
 
 
@@ -2199,6 +2332,604 @@ def run_person_tracker(device):
     print(f"person tracker phase: {time.perf_counter() - t_phase:.1f} s")
 
 
+def leaf_rgb(camera, i, seed=LEAF_SEED):
+    """Bench frame ``i``'s colour image, aligned with the depth camera: a
+    seeded two-scale texture that is never red (green above red and blue
+    everywhere, hue 60-180 degrees), and the box's pixels of the noiseless
+    render painted RGB (200, 20, 20) with +-10 noise a channel. Returns
+    (rgb (H, W, 3) uint8, box pixels (H, W) bool)."""
+    from perception_tpu_torch.bench.scene import bench_twist, render_depth_tabletop
+
+    H, W = camera.height, camera.width
+    rng = np.random.default_rng(seed + i)
+    coarse = rng.integers(0, 60, (H // 16 + 1, W // 16 + 1, 3))
+    tex = np.kron(coarse, np.ones((16, 16, 1), np.int64))[:H, :W] + rng.integers(0, 20, (H, W, 3))
+    rgb = np.stack([20 + tex[..., 0], 110 + tex[..., 1], 30 + tex[..., 2]], axis=-1)
+    box = render_depth_tabletop(camera, bench_twist(i), noise=0.0) < 0.85 - 1e-6
+    rgb[box] = np.array([200, 20, 20]) + rng.integers(-10, 11, (int(box.sum()), 3))
+    return rgb.astype(np.uint8), box
+
+
+def opened_rect(mask):
+    """The reference detector's rectangle for a mask of exactly the red
+    pixels, by scipy: a 5x5 erosion twice (the border counts as
+    foreground) and dilation twice, the largest 4-connected component
+    (the first in raster order among equals), its bounding box +-10 px."""
+    from scipy import ndimage
+
+    k = np.ones((5, 5), bool)
+    m = ndimage.binary_erosion(mask, k, iterations=2, border_value=1)
+    m = ndimage.binary_dilation(m, k, iterations=2)
+    labels, n = ndimage.label(m)
+    require(n > 0, "opened_rect: no component")
+    big = 1 + int(np.argmax(np.bincount(labels.ravel())[1:]))
+    ys, xs = np.nonzero(labels == big)
+    return xs.min() - 10, ys.min() - 10, xs.max() + 10, ys.max() + 10
+
+
+def box_corners(pose, dims=(0.2, 0.1, 0.03)):
+    """The 8 corners (8, 3) of a dims box under ``pose`` (object -> camera)."""
+    half = np.asarray(dims) / 2.0
+    signs = np.array(list(itertools.product((-1, 1), repeat=3)), np.float64)
+    return (signs * half @ pose[:3, :3].T + pose[:3, 3]).astype(np.float32)
+
+
+def tabletop_cloud(seed=0, twist=(0.08, 0.04, 0.83, 0.0, 0.0, 0.4), dims=(0.2, 0.1, 0.03), n_table=15000,
+                   noise=0.0015):
+    """tests/test_models.py's tabletop scene: a table plane and one cuboid
+    template seen at an angle, so that three of its faces show. Returns
+    (points (N, 3) float32, the cuboid's centre)."""
+    from perception_tpu_torch.geometry import se3
+    from perception_tpu_torch.io.templates import cuboid_template
+
+    rng = np.random.RandomState(seed)
+    table = np.stack([rng.uniform(-0.35, 0.35, n_table), rng.uniform(-0.3, 0.3, n_table),
+                      np.full(n_table, 0.85)], 1)
+    T = se3.se3_exp(torch.tensor(twist, dtype=torch.float32)).numpy()
+    obj = cuboid_template(*dims, density=0.004) @ T[:3, :3].T + T[:3, 3]
+    cloud = np.concatenate([table, obj]).astype(np.float32)
+    cloud += rng.randn(*cloud.shape) * noise
+    return cloud.astype(np.float32), T[:3, 3]
+
+
+def surface_indices(points, mask, normal, gen, num=512, threshold=0.008, eps_angle=0.1):
+    """The triplets that ``estimate_surface_frame`` draws from ``gen`` for
+    its three fits, each on the mask left by the fits before it (on the CPU)."""
+    from perception_tpu_torch.ops.ransac import _sample_indices, ransac_plane
+
+    idx, m = [], mask
+    for model in ("perpendicular", "parallel", "parallel"):
+        idx.append(_sample_indices(gen, m, num))
+        fit = ransac_plane(points, m, None, threshold=threshold, num_hypotheses=num, model=model, axis=normal,
+                           eps_angle=eps_angle, indices=idx[-1])
+        m = m & ~fit.inliers
+    return idx
+
+
+def check_surface_frame(label, sf, center):
+    """The frame's gates: orthonormal within 1e-5, right-handed (det > 0.99),
+    origin within 5 cm of the box's centre. Returns the origin's error (m)."""
+    pose = sf.pose.double().cpu().numpy()
+    R = pose[:3, :3]
+    orth = float(np.abs(R @ R.T - np.eye(3)).max())
+    det = float(np.linalg.det(R))
+    err = float(np.linalg.norm(pose[:3, 3] - center))
+    require(orth <= 1e-5 and det > 0.99 and err < 0.05 and bool(torch.isfinite(sf.pose).all()),
+            f"{label}: surface frame |R R^T - I| {orth:.2e}, det {det:.4f}, origin {err * 100:.2f} cm off the box")
+    return orth, det, err
+
+
+def run_leaf_nodes(device):
+    """The reference's cuboid_detection leaf nodes on the 8 bench frames at
+    640x480 (``bench/scene.py``) with a colour image made by ``leaf_rgb``:
+    ``detect_red_object`` (HSV threshold, 5x5 erode and dilate twice, the
+    largest component's rectangle +-10 px), ``project_bbox`` of the box's 8
+    corners, ``filter_by_rect`` on the decimated cloud, then
+    ``segment_ground_plane`` and ``estimate_surface_frame`` (three fits,
+    each one K1 launch at B=1 N=8192 K=512), and the surface frame on
+    tests/test_models.py's tabletop scene, where three faces show.
+
+    Gates: the rectangle equal to ``opened_rect`` of the box's pixels (the
+    same morphology by scipy), every corner inside it, every decimated box
+    point kept; the
+    surface frame orthonormal within 1e-5, det > 0.99, origin within 5 cm
+    of the box (valid on the tabletop, where three faces show); exactly 3
+    K1 launches a surface frame; the card equal to the CPU on the same
+    inputs and triplets (rectangles, kept points and inlier counts exact,
+    pixels within 1e-4 px or 2 ulps, normals and pose within 1e-5); host
+    syncs: none but the 3 eighs of a surface frame. Returns the K1
+    launches at K=1024 (ground planes) and at K=512 (surface frames)."""
+    from perception_tpu_torch.bench.scene import bench_frames
+    from perception_tpu_torch.geometry.camera import PinholeCamera
+    from perception_tpu_torch.models.bbox_filter import filter_by_rect, project_bbox, project_P
+    from perception_tpu_torch.models.color_detect import detect_red_object
+    from perception_tpu_torch.models.cuboid import CuboidConfig, decimate, segment_ground_plane
+    from perception_tpu_torch.models.surface_frame import estimate_surface_frame
+    from perception_tpu_torch.ops import ransac
+
+    t_phase = time.perf_counter()
+    cfg = CuboidConfig()
+    camera = PinholeCamera.d435_depth()
+    depths, gts = bench_frames(camera, range(FRAMES))
+    rgbs, boxes = (np.stack(x) for x in zip(*(leaf_rgb(camera, i) for i in range(FRAMES))))
+    P = np.concatenate([camera.K, np.zeros((3, 1), np.float32)], axis=1)
+    corners = np.stack([box_corners(g) for g in gts])
+    host = dict(rgb=torch.from_numpy(rgbs), depth=torch.from_numpy(depths), P=torch.from_numpy(P),
+                E=torch.eye(4), corners=torch.from_numpy(corners))
+    on = {"cpu": host, device: {k: v.to(device) for k, v in host.items()}}
+    gen = torch.Generator(device=device).manual_seed(0)
+
+    def front(d, i, g):
+        x = on[d]
+        rect = detect_red_object(x["rgb"][i])
+        uv = project_bbox(x["P"], x["E"], x["corners"][i])
+        dd, cam2 = decimate(x["depth"][i], camera, cfg.depth_stride)
+        pts, m = cam2.backproject_depth(dd)
+        kept = filter_by_rect(pts, m, x["P"], rect[:4])
+        fit, dpts, box = segment_ground_plane(pts, m, g, cfg)
+        return rect, uv, pts, m, kept, fit, dpts, box
+
+    # The path, counted: the front nodes and ground planes, then the surface frames.
+    table_np, table_center = tabletop_cloud()
+    table_pts = torch.from_numpy(table_np).to(device)
+    table_mask = torch.ones(len(table_np), dtype=torch.bool, device=device)
+    reset_launches()
+    fronts = [front(device, i, gen) for i in range(FRAMES)]
+    tfit, tdpts, tbox = segment_ground_plane(table_pts, table_mask, gen, cfg)
+    torch.cuda.synchronize()
+    front_counts = read_launches()
+    reset_launches()
+    frames = [estimate_surface_frame(f[6], f[7], f[5].coefficients[:3], gen) for f in fronts]
+    table_sf = estimate_surface_frame(tdpts, tbox, tfit.coefficients[:3], gen)
+    torch.cuda.synchronize()
+    sf_counts = read_launches()
+    print(f"leaf nodes path: {FRAMES} x (detect_red_object, project_bbox, filter_by_rect, segment_ground_plane) "
+          f"and the tabletop's ground plane: launches {front_counts}; {FRAMES} + 1 x estimate_surface_frame: "
+          f"launches {sf_counts}")
+    require(front_counts == {"ransac_score": FRAMES + 1, "icp_gn": 0, "voxelhash_query": 0},
+            "leaf nodes: expected one K1 launch a ground plane and no other kernel")
+    require(sf_counts == {"ransac_score": 3 * (FRAMES + 1), "icp_gn": 0, "voxelhash_query": 0},
+            "leaf nodes: expected exactly 3 K1 launches a surface frame and no other kernel")
+
+    for i, ((rect, uv, pts, m, kept, fit, dpts, box), sf) in enumerate(zip(fronts, frames)):
+        r = [int(v) for v in torch.stack(list(rect)).cpu()]
+        want = opened_rect(boxes[i])
+        off = max(abs(a - b) for a, b in zip(r[:4], want))
+        uvn = uv.cpu().numpy()
+        inside = bool(np.all((uvn[:, 0] >= r[0]) & (uvn[:, 0] <= r[2]) & (uvn[:, 1] >= r[1]) & (uvn[:, 1] <= r[3])))
+        box_dec = torch.from_numpy(boxes[i][1::2, 1::2].reshape(-1)).to(device)
+        lost = int((box_dec & ~kept).sum())
+        orth, det, err = check_surface_frame(f"leaf frame {i}", sf, gts[i][:3, 3])
+        print(f"leaf frame {i}: rect {r[:4]} valid {bool(r[4])} (scipy's opening of the box pixels: "
+              f"{list(map(int, want))}, off by "
+              f"{off} px), corners inside {inside}, kept {int(kept.sum())} points of which box {int(box_dec.sum())}"
+              f" (lost {lost}); ground plane valid {bool(fit.valid)}; surface frame valid {bool(sf.valid)} counts "
+              f"{sf.inlier_counts.tolist()} |R R^T - I| {orth:.2e} det {det:.6f} origin {err * 100:.2f} cm")
+        require(bool(r[4]) and off == 0 and inside and lost == 0, f"leaf frame {i}: the rectangle misses the box")
+    orth, det, err = check_surface_frame("tabletop", table_sf, table_center)
+    print(f"tabletop surface frame: valid {bool(table_sf.valid)} counts {table_sf.inlier_counts.tolist()} "
+          f"|R R^T - I| {orth:.2e} det {det:.6f} origin {err * 100:.2f} cm")
+    require(bool(table_sf.valid), "tabletop: the surface frame's three fits are not all valid")
+
+    # The card against the port's CPU path, on the same inputs and triplets.
+    worst = dict(uv=0.0, sf=0.0)
+    cases = [(f[2], f[3], f[6], f[7], f[5].coefficients[:3], f[0]) for f in fronts]
+    cases.append((None, None, tdpts, tbox, tfit.coefficients[:3], None))
+    for i, (pts, m, dpts, box, normal, rect) in enumerate(cases):
+        if rect is not None:
+            c_rect = detect_red_object(host["rgb"][i])
+            require(all(torch.equal(a.cpu(), b) for a, b in zip(rect, c_rect)),
+                    f"leaf frame {i}: rectangles differ between card and CPU")
+            c_uv = project_bbox(host["P"], host["E"], host["corners"][i])
+            g_uv = project_bbox(on[device]["P"], on[device]["E"], on[device]["corners"][i]).cpu()
+            require(torch.allclose(g_uv, c_uv, rtol=2.4e-7, atol=1e-4), f"leaf frame {i}: projected corners differ")
+            worst["uv"] = max(worst["uv"], float((g_uv - c_uv).abs().max()))
+            p_cpu = pts.cpu()
+            c_kept = filter_by_rect(p_cpu, m.cpu(), host["P"], c_rect[:4])
+            g_kept = filter_by_rect(pts, m, on[device]["P"], rect[:4]).cpu()
+            q = project_P(host["P"], p_cpu)
+            edge = torch.zeros(len(p_cpu), dtype=torch.bool)
+            for k, v in enumerate(c_rect[:4]):
+                edge |= (q[:, k % 2] - float(v)).abs() <= 1e-3
+            require(torch.equal(c_kept[~edge], g_kept[~edge]), f"leaf frame {i}: kept points differ")
+        d_cpu, b_cpu, n_cpu = dpts.cpu(), box.cpu(), normal.cpu()
+        idx = surface_indices(d_cpu, b_cpu, n_cpu, torch.Generator().manual_seed(100 + i))
+        c_sf = estimate_surface_frame(d_cpu, b_cpu, n_cpu, indices=idx)
+        g_sf = estimate_surface_frame(dpts, box, normal, indices=[t.to(device) for t in idx])
+        g_sf = type(g_sf)(*(t.cpu() for t in g_sf))
+        diff = max(float((g_sf.pose - c_sf.pose).abs().max()), float((g_sf.face_normals - c_sf.face_normals).abs().max()))
+        worst["sf"] = max(worst["sf"], diff)
+        require(torch.equal(g_sf.inlier_counts, c_sf.inlier_counts) and bool(g_sf.valid) == bool(c_sf.valid)
+                and diff <= 1e-5, f"leaf case {i}: surface frames differ between card and CPU ({diff:.2e})")
+    print(f"leaf nodes cuda vs cpu (same inputs and triplets): rectangles, kept points and inlier counts equal; "
+          f"corner pixels max diff {worst['uv']:.3e} px, surface frame max diff {worst['sf']:.3e}")
+
+    # Host syncs: none but the refits' eigh (3 a surface frame).
+    rect, uv, pts, m, kept, fit, dpts, box = fronts[0]
+    x = on[device]
+    eigh = f"ops/ransac.py:{source_line(ransac, 'torch.linalg.eigh(')}"
+    torch.cuda.synchronize()
+    with recorded_syncs() as sites:
+        detect_red_object(x["rgb"][0])
+        project_bbox(x["P"], x["E"], x["corners"][0])
+        filter_by_rect(pts, m, x["P"], rect[:4])
+    require_syncs("detect_red_object + project_bbox + filter_by_rect", sites, {})
+    torch.cuda.synchronize()
+    with recorded_syncs() as sites:
+        estimate_surface_frame(dpts, box, fit.coefficients[:3], gen)
+    require_syncs("estimate_surface_frame", sites, {eigh: 3})
+
+    # ms a frame (host clock, synchronized), then each stage by CUDA events.
+    runs = []
+    for i in range(FRAMES):
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        f = front(device, i, gen)
+        estimate_surface_frame(f[6], f[7], f[5].coefficients[:3], gen)
+        torch.cuda.synchronize()
+        runs.append((time.perf_counter() - t0) * 1e3)
+    print(f"leaf nodes: {statistics.median(runs):.2f} ms a frame (median of {FRAMES}, frames "
+          f"{[round(r, 2) for r in runs]})")
+    stages = {
+        "detect_red_object": lambda: detect_red_object(x["rgb"][0]),
+        "project_bbox": lambda: project_bbox(x["P"], x["E"], x["corners"][0]),
+        "filter_by_rect": lambda: filter_by_rect(pts, m, x["P"], rect[:4]),
+        "segment_ground_plane": lambda: segment_ground_plane(pts, m, gen, cfg),
+        "estimate_surface_frame": lambda: estimate_surface_frame(dpts, box, fit.coefficients[:3], gen),
+    }
+    print("leaf nodes stage ms (CUDA events, median of runs): " + ", ".join(
+        f"{k} {fmt_ms(event_ms(fn))}" for k, fn in stages.items()))
+    print(f"leaf nodes phase: {time.perf_counter() - t_phase:.1f} s")
+    return front_counts["ransac_score"], sf_counts["ransac_score"]
+
+
+def render_board(H, rows, cols, size=(480, 640), ss=3):
+    """A chessboard with rows x cols inner corners through the homography H
+    (board lattice -> image; inner corner (i, j) at lattice (i + 1, j + 1)),
+    white outside the board, ``ss`` x ``ss`` supersampled; pixel i is centred
+    at coordinate i (tests/test_chessboard.py's renderer). Returns (gray
+    float32 in [0, 1], (rows*cols, 2) true inner corners row-major)."""
+    h, w = size
+    Hinv = np.linalg.inv(H)
+    ys = (np.arange(h * ss) + 0.5) / ss - 0.5
+    xs = (np.arange(w * ss) + 0.5) / ss - 0.5
+    uu, vv = np.meshgrid(xs, ys)
+    pix = np.stack([uu, vv, np.ones_like(uu)], -1) @ Hinv.T
+    bx = pix[..., 0] / pix[..., 2]
+    by = pix[..., 1] / pix[..., 2]
+    inside = (bx >= 0) & (bx <= cols + 1) & (by >= 0) & (by <= rows + 1)
+    checker = ((np.floor(bx).astype(int) + np.floor(by).astype(int)) % 2).astype(float)
+    img = np.where(inside, checker, 1.0).reshape(h, ss, w, ss).mean((1, 3))
+    gy, gx = np.meshgrid(np.arange(1, rows + 1), np.arange(1, cols + 1), indexing="ij")
+    proj = np.stack([gx.ravel(), gy.ravel(), np.ones(rows * cols)], -1) @ H.T
+    return img.astype(np.float32), (proj[:, :2] / proj[:, 2:3]).astype(np.float32)
+
+
+def chain_scene(seed=CHAIN_SEED):
+    """The 3-D chain's rig and boards: CHAIN_CAMERAS cameras 0.25 m apart on
+    a line, each turned toward a point 2 m ahead, camera 0 the rig's frame;
+    CHAIN_BOARDS poses of a CHAIN_ROWS x CHAIN_COLS inner-corner board of
+    CHAIN_SQUARE squares 1.2-1.7 m ahead, tilted up to 0.35 rad about each
+    axis, from numpy's default_rng(seed). Returns (Ks (C, 3, 3), true
+    T_rig_cam (C, 4, 4), true T_rig_board (B, 4, 4), images (C, B, H, W),
+    true corners (C, B, P, 2))."""
+    from perception_tpu_torch.geometry import se3
+
+    def rotation(w):
+        return se3.so3_exp(torch.tensor(w, dtype=torch.float64)).numpy()
+
+    rng = np.random.default_rng(seed)
+    C, B = CHAIN_CAMERAS, CHAIN_BOARDS
+    Ks = np.stack([np.array([[600.0 + 8 * c, 0, 320 - 4 * c], [0, 596.0 + 8 * c, 240 + 3 * c], [0, 0, 1]])
+                   for c in range(C)])
+    world_cam = []
+    for c in range(C):
+        x = -0.375 + 0.25 * c
+        T = np.eye(4)
+        T[:3, :3] = rotation([0.0, np.arctan2(-x, 2.0), 0.0])
+        T[:3, 3] = [x, 0.02 * c, 0.0]
+        world_cam.append(T)
+    T_rig_cam = np.stack([np.linalg.inv(world_cam[0]) @ T for T in world_cam])
+    rows, cols, sq = CHAIN_ROWS, CHAIN_COLS, CHAIN_SQUARE
+    T_rig_board = []
+    for _ in range(B):
+        T = np.eye(4)
+        T[:3, :3] = rotation(rng.uniform(-0.35, 0.35, 3))
+        center = np.array([rng.uniform(-0.2, 0.2), rng.uniform(-0.15, 0.15), rng.uniform(1.2, 1.7)])
+        T[:3, 3] = center - T[:3, :3] @ np.array([(cols - 1) * sq / 2, (rows - 1) * sq / 2, 0.0])
+        T_rig_board.append(np.linalg.inv(world_cam[0]) @ T)
+    T_rig_board = np.stack(T_rig_board)
+    lattice = np.array([[sq, 0, -sq], [0, sq, -sq], [0, 0, 1.0]])
+    jobs = []
+    for c in range(C):
+        for b in range(B):
+            T = np.linalg.inv(T_rig_cam[c]) @ T_rig_board[b]
+            jobs.append(Ks[c] @ T[:3][:, [0, 1, 3]] @ lattice)
+    with ThreadPoolExecutor(8) as pool:
+        out = list(pool.map(lambda H: render_board(H, rows, cols), jobs))
+    images = np.stack([o[0] for o in out]).reshape(C, B, 480, 640)
+    corners = np.stack([o[1] for o in out]).reshape(C, B, rows * cols, 2)
+    return Ks.astype(np.float32), T_rig_cam, T_rig_board, images, corners
+
+
+def chain_people(rng, people=CHAIN_PEOPLE):
+    """``people`` BODY_25 skeletons (people, 25, 3) in the rig's frame: the
+    body model's 15 joints posed by forward kinematics (knees and elbows
+    bent up to 0.5 rad, a yaw, a bone scale 0.95-1.05), 2.3-3.0 m ahead,
+    and the 10 face and foot keypoints a few cm from their joints."""
+    from perception_tpu_torch.geometry import se3
+    from perception_tpu_torch.models.body_fit import BODY15_TO_BODY25, BodyModel, forward_kinematics
+
+    model = BodyModel.body15()
+    out = np.zeros((people, 25, 3), np.float32)
+    # BODY_25 index: (body-model joint it sits by, offset in m): eyes and ears
+    # by the nose, toes and heels by the ankles.
+    extra = {15: (2, [-0.03, -0.04, -0.05]), 16: (2, [0.03, -0.04, -0.05]), 17: (2, [-0.07, -0.02, 0.02]),
+             18: (2, [0.07, -0.02, 0.02]), 19: (8, [0.02, 0.03, -0.12]), 20: (8, [0.06, 0.03, -0.1]),
+             21: (8, [0.0, 0.04, 0.05]), 22: (5, [-0.02, 0.03, -0.12]), 23: (5, [-0.06, 0.03, -0.1]),
+             24: (5, [0.0, 0.04, 0.05])}
+    for p in range(people):
+        angles = np.zeros((15, 3), np.float32)
+        for j in (4, 7, 10, 13):
+            angles[j] = rng.uniform(-0.5, 0.5, 3)
+        twist = np.array([rng.uniform(-0.6, 0.6), 0.0, rng.uniform(2.3, 3.0), 0.0, rng.uniform(-0.6, 0.6), 0.0],
+                         np.float32)
+        T = se3.se3_exp(torch.from_numpy(twist))
+        joints = forward_kinematics(model, T, torch.from_numpy(angles), float(rng.uniform(0.95, 1.05))).numpy()
+        out[p, BODY15_TO_BODY25] = joints
+        for k, (j, off) in extra.items():
+            out[p, k] = joints[j] + np.asarray(off, np.float32)
+    return out
+
+
+def run_3d_chain(device):
+    """OpenPose's 3-D module on the port: chessboard detection on
+    CHAIN_CAMERAS x CHAIN_BOARDS rendered 640x480 views (``chain_scene``),
+    Zhang calibration of each camera on its detected corners plus
+    CHAIN_NOISE_PX of seeded noise, pairwise extrinsics to camera 0, the
+    joint refinement of the rig at (C=4, B=12, P=54) from them, and again
+    from its result perturbed as tests/test_calibration.py perturbs its
+    initialisation (0.01 twists); then CHAIN_PEOPLE
+    BODY_25 people projected through the refined cameras (1 px noise, 5%
+    of the views masked), ``triangulate``, ``fit_body_from_body25`` over
+    the people, ``save_bvh`` of CHAIN_BVH_FRAMES frames, and
+    ``StereoCamera`` of cameras 0 and 1 over a disparity round trip.
+
+    Gates (the JAX tests' at this size): corner error max < 0.7 px and mean
+    < 0.4 px; fx within 15 px and cy within 10 px; refined rms below 0.5
+    px, below the initial from the pairwise poses (which start within
+    ~0.5 px) and below half the initial from the perturbed ones; triangulation error mean < 3 cm; fit
+    residual < 2 cm a person; the BVH's header and frame count; the stereo
+    round trip within 1e-5. The card against the CPU on the same inputs:
+    corners within 1e-4 px, K within 1e-3 (the skew within 1e-3 of fx),
+    board poses within 1e-3, the refined rms within 1e-4 px and poses
+    within 1e-4, triangulated points within 1e-4 m with ``valid`` equal,
+    fitted joints within 1 mm and residuals within 1e-4 m, stereo within
+    1e-6 relative. Host syncs as each entry point states: the chessboard
+    detector's one read, the eighs (one a call) and the SVD of
+    ``se3.orthonormalize`` (two). No K1-K4 kernel runs here."""
+    import tempfile
+    from pathlib import Path
+
+    from perception_tpu_torch.geometry import se3
+    from perception_tpu_torch.geometry.camera import PinholeCamera
+    from perception_tpu_torch.geometry.stereo import StereoCamera
+    from perception_tpu_torch.io.bvh import save_bvh
+    from perception_tpu_torch.models.body_fit import fit_body_from_body25
+    from perception_tpu_torch.models.pose import BODY_25_PAIRS, BODY_25_PARTS
+    from perception_tpu_torch.ops import calibration, chessboard, triangulate as tri_mod
+    from perception_tpu_torch.ops.calibration import (
+        calibrate_camera,
+        chessboard_object_points,
+        joint_extrinsics_refine,
+        pairwise_extrinsics,
+    )
+    from perception_tpu_torch.ops.chessboard import detect_chessboard_native
+    from perception_tpu_torch.ops.triangulate import triangulate
+
+    t_phase = time.perf_counter()
+    Ks_true, T_cam_true, _, images, corners_true = chain_scene()
+    C, B = CHAIN_CAMERAS, CHAIN_BOARDS
+    rows, cols = CHAIN_ROWS, CHAIN_COLS
+    print(f"3-D chain scene: {C} cameras x {B} boards of {rows}x{cols} inner corners at 640x480, rendered in "
+          f"{time.perf_counter() - t_phase:.1f} s")
+    stage = {}
+    reset_launches()
+
+    # 1. Chessboard corners on the card, every view; the CPU on the same images.
+    t0 = time.perf_counter()
+    imgs = torch.from_numpy(images).to(device)
+    det = [[detect_chessboard_native(imgs[c, b], rows, cols) for b in range(B)] for c in range(C)]
+    torch.cuda.synchronize()
+    stage["detect_chessboard_native (48 views)"] = (time.perf_counter() - t0) * 1e3
+    require(all(d is not None for row in det for d in row), "3-D chain: a board was not detected")
+    det = np.stack([np.stack(row) for row in det])
+    err = np.linalg.norm(det - corners_true, axis=-1)
+    cpu_det = np.stack([np.stack([detect_chessboard_native(images[c, b], rows, cols, device="cpu")
+                                  for b in range(B)]) for c in range(C)])
+    det_diff = float(np.abs(det - cpu_det).max())
+    print(f"chessboard: 48/48 boards found; corner error max {err.max():.4f} px mean {err.mean():.4f} px "
+          f"(limits 0.7 / 0.4); card vs cpu max diff {det_diff:.3e} px")
+    require(err.max() < 0.7 and err.mean() < 0.4, "chessboard: corner error over the JAX tests' gate")
+    require(det_diff <= 1e-4, "chessboard: card and CPU corners differ")
+
+    # 2. Zhang calibration of each camera on its corners + CHAIN_NOISE_PX noise.
+    noisy = (det + np.random.default_rng(CHAIN_SEED + 1).normal(0, CHAIN_NOISE_PX, det.shape)).astype(np.float32)
+    obj = chessboard_object_points(rows, cols, CHAIN_SQUARE)
+    obj_d, obs_d = torch.from_numpy(obj).to(device), torch.from_numpy(noisy).to(device)
+    t0 = time.perf_counter()
+    calib = [calibrate_camera(obj_d, obs_d[c]) for c in range(C)]
+    torch.cuda.synchronize()
+    stage["calibrate_camera (4 cameras)"] = (time.perf_counter() - t0) * 1e3
+    Ks = torch.stack([k for k, _ in calib])
+    T_cam_board = torch.stack([t for _, t in calib])
+    cpu_calib = [calibrate_camera(torch.from_numpy(obj), torch.from_numpy(noisy[c])) for c in range(C)]
+    k_card, k_cpu = Ks.cpu().numpy(), np.stack([k.numpy() for k, _ in cpu_calib])
+    diag = (slice(None), [0, 1, 0, 1], [0, 1, 2, 2])
+    k_rel = float(np.abs(k_card[diag] / k_cpu[diag] - 1).max())
+    skew = float(np.abs(k_card[:, 0, 1] - k_cpu[:, 0, 1]).max() / k_cpu[:, 0, 0].min())
+    t_diff = float(np.abs(T_cam_board.cpu().numpy() - np.stack([t.numpy() for _, t in cpu_calib])).max())
+    for c in range(C):
+        print(f"camera {c}: fx {k_card[c, 0, 0]:.3f} fy {k_card[c, 1, 1]:.3f} cx {k_card[c, 0, 2]:.3f} "
+              f"cy {k_card[c, 1, 2]:.3f} skew {k_card[c, 0, 1]:.4f} (true fx {Ks_true[c, 0, 0]:.1f} "
+              f"cy {Ks_true[c, 1, 2]:.1f})")
+    print(f"calibration card vs cpu: K rel diff {k_rel:.3e} (skew {skew:.3e} of fx), board poses max diff {t_diff:.3e}")
+    require(np.all(np.abs(k_card[:, 0, 0] - Ks_true[:, 0, 0]) < 15) and np.all(np.abs(k_card[:, 1, 2] - Ks_true[:, 1, 2]) < 10),
+            "calibration: fx or cy off the JAX tests' gate")
+    require(k_rel <= 1e-3 and skew <= 1e-3 and t_diff <= 1e-3, "calibration: card and CPU differ")
+
+    # 3. Pairwise extrinsics to camera 0, then the joint refinement.
+    t0 = time.perf_counter()
+    T_rig_cam0 = torch.stack([torch.eye(4, device=device)] +
+                             [pairwise_extrinsics(T_cam_board[0], T_cam_board[c]) for c in range(1, C)])
+    torch.cuda.synchronize()
+    stage["pairwise_extrinsics (3 pairs)"] = (time.perf_counter() - t0) * 1e3
+    obj3 = torch.cat([obj_d, torch.zeros_like(obj_d[:, :1])], dim=1)
+    mask = torch.ones((C, B), dtype=torch.bool, device=device)
+    args = (T_rig_cam0, T_cam_board[0], Ks, obj3, obs_d, mask)
+    t0 = time.perf_counter()
+    Tc, Tb, rms0, rms1 = joint_extrinsics_refine(*args)
+    torch.cuda.synchronize()
+    stage["joint_extrinsics_refine (C=4, B=12, P=54)"] = (time.perf_counter() - t0) * 1e3
+    cTc, cTb, crms0, crms1 = joint_extrinsics_refine(*(a.cpu() for a in args))
+    pose_diff = max(float((Tc.cpu() - cTc).abs().max()), float((Tb.cpu() - cTb).abs().max()))
+    rms_diff = max(abs(float(rms0) - float(crms0)), abs(float(rms1) - float(crms1)))
+    t_err = np.linalg.norm(Tc.cpu().numpy()[:, :3, 3] - T_cam_true[:, :3, 3], axis=-1)
+    print(f"joint refinement from the pairwise initialisation: rms {float(rms0):.4f} -> {float(rms1):.4f} px "
+          f"(limits: below the initial, below 0.5); camera positions off the truth "
+          f"{np.round(t_err * 1e3, 2).tolist()} mm; card vs cpu rms diff {rms_diff:.3e} px, poses {pose_diff:.3e}")
+    require(float(rms1) < float(rms0) and float(rms1) < 0.5, "joint refinement: rms over the gate")
+    require(rms_diff <= 1e-4 and pose_diff <= 1e-4, "joint refinement: card and CPU differ")
+    # tests/test_calibration.py's setting on this rig: the refined poses
+    # perturbed by seeded 0.01 twists (camera 0 fixed), refined again.
+    prng = np.random.default_rng(CHAIN_SEED + 4)
+    pert_c = prng.normal(0, 0.01, (C, 6)).astype(np.float32)
+    pert_c[0] = 0.0
+    pert_b = prng.normal(0, 0.01, (B, 6)).astype(np.float32)
+    p_args = (se3.se3_exp(torch.from_numpy(pert_c).to(device)) @ Tc,
+              se3.se3_exp(torch.from_numpy(pert_b).to(device)) @ Tb, *args[2:])
+    pTc, pTb, prms0, prms1 = joint_extrinsics_refine(*p_args)
+    cp = joint_extrinsics_refine(*(a.cpu() for a in p_args))
+    p_diff = max(abs(float(prms1) - float(cp[3])), float((pTc.cpu() - cp[0]).abs().max()))
+    print(f"joint refinement from the perturbed initialisation: rms {float(prms0):.4f} -> {float(prms1):.4f} px "
+          f"(limits: below half the initial, below 0.5); card vs cpu {p_diff:.3e}")
+    require(float(prms1) < 0.5 * float(prms0) and float(prms1) < 0.5,
+            "joint refinement: rms over the JAX test's gate")
+    require(p_diff <= 1e-4, "joint refinement (perturbed): card and CPU differ")
+
+    # 4. BODY_25 people through the refined cameras: triangulate, fit, BVH.
+    rng = np.random.default_rng(CHAIN_SEED + 2)
+    people = chain_people(rng)
+    Pm = (Ks @ se3.inverse(Tc)[:, :3, :]).cpu().numpy()
+    X = people.reshape(-1, 3).astype(np.float64)
+    proj = np.einsum("cij,nj->nci", Pm.astype(np.float64), np.concatenate([X, np.ones((len(X), 1))], 1))
+    uv = (proj[..., :2] / proj[..., 2:] + rng.normal(0, 1.0, proj[..., :2].shape)).astype(np.float32)
+    vis = rng.random(uv.shape[:2]) >= 0.05
+    tri_in = {d: tuple(torch.from_numpy(a).to(d) for a in (Pm, uv, vis)) for d in (device, "cpu")}
+    t0 = time.perf_counter()
+    res = triangulate(*tri_in[device])
+    torch.cuda.synchronize()
+    stage["triangulate (200 points)"] = (time.perf_counter() - t0) * 1e3
+    cres = triangulate(*tri_in["cpu"])
+    valid = res.valid.cpu().numpy()
+    tri_err = np.linalg.norm(res.points.cpu().numpy() - people.reshape(-1, 3), axis=-1)[valid]
+    p_diff = float((res.points.cpu() - cres.points).abs()[cres.valid].max())
+    print(f"triangulation: {int(valid.sum())}/{len(valid)} valid, {int((~vis).sum())} of {vis.size} views masked; "
+          f"error mean {tri_err.mean() * 100:.3f} cm max {tri_err.max() * 100:.3f} cm (limit: mean < 3 cm); card vs "
+          f"cpu points max diff {p_diff:.3e} m, valid equal {torch.equal(res.valid.cpu(), cres.valid)}")
+    require(tri_err.mean() < 0.03, "triangulation: error over the JAX test's gate")
+    require(torch.equal(res.valid.cpu(), cres.valid) and p_diff <= 1e-4, "triangulation: card and CPU differ")
+
+    kp = res.points.reshape(CHAIN_PEOPLE, 25, 3)
+    conf = res.valid.reshape(CHAIN_PEOPLE, 25).to(torch.float32) * 0.9
+    t0 = time.perf_counter()
+    fit = fit_body_from_body25(kp, conf)
+    torch.cuda.synchronize()
+    stage[f"fit_body_from_body25 ({CHAIN_PEOPLE} people)"] = (time.perf_counter() - t0) * 1e3
+    cfit = fit_body_from_body25(kp.cpu(), conf.cpu())
+    resid = fit.residual.cpu().numpy()
+    j_diff = float((fit.joints.cpu() - cfit.joints).abs().max())
+    r_diff = float((fit.residual.cpu() - cfit.residual).abs().max())
+    same_steps = torch.equal(fit.accepted.cpu(), cfit.accepted)
+    print(f"body fit: residual a person {np.round(resid * 100, 3).tolist()} cm (limit 2 cm); LM steps accepted "
+          f"{fit.accepted.sum(-1).tolist()} of {fit.accepted.shape[-1]}; card vs cpu joints max diff {j_diff:.3e} m, "
+          f"residual {r_diff:.3e} m, accept patterns equal {same_steps}")
+    require(np.all(resid < 0.02), "body fit: a residual over 2 cm")
+    require(j_diff <= 1e-3 and r_diff <= 1e-4, "body fit: card and CPU differ")
+
+    frames = [kp[0].cpu().numpy() + np.float32(0.01 * k) * np.array([1, 0, 0], np.float32)
+              for k in range(CHAIN_BVH_FRAMES)]
+    with tempfile.TemporaryDirectory() as tmp:
+        t0 = time.perf_counter()
+        save_bvh(Path(tmp) / "chain.bvh", frames, BODY_25_PAIRS, BODY_25_PARTS)
+        stage[f"save_bvh ({CHAIN_BVH_FRAMES} frames)"] = (time.perf_counter() - t0) * 1e3
+        text = (Path(tmp) / "chain.bvh").read_text()
+    motion = text.split("Frame Time:")[1].strip().splitlines()[1:]
+    print(f"bvh: {len(text)} bytes, {text.count('JOINT')} joints, {len(motion)} motion lines")
+    require(text.startswith("HIERARCHY") and "ROOT MidHip" in text and f"Frames: {CHAIN_BVH_FRAMES}" in text
+            and len(motion) == CHAIN_BVH_FRAMES, "bvh: the file is not as written")
+
+    # 5. A stereo pair of cameras 0 and 1: a disparity round trip.
+    K0 = Ks[0].cpu().numpy()
+    st = StereoCamera(left=PinholeCamera.from_K(K0), baseline=float(Tc[1, :3, 3].norm()))
+    depth_np = np.random.default_rng(CHAIN_SEED + 3).uniform(0.5, 5.0, (480, 640)).astype(np.float32)
+    outs = {}
+    for d in (device, "cpu"):
+        depth = torch.from_numpy(depth_np).to(d)
+        disp = st.depth_to_disparity(depth)
+        outs[d] = (st.disparity_to_depth(disp), *st.disparity_image_to_3d(disp))
+    back, pts, ok = (t.cpu() for t in outs[device])
+    rt = float((back.numpy() / depth_np - 1).__abs__().max())
+    vv, uu = np.meshgrid(np.arange(480), np.arange(640), indexing="ij")
+    # The rectified pair's Q has one focal length: Y = (v - cy) Z / fx.
+    xyz = np.stack([(uu - st.left.cx) * depth_np / st.left.fx, (vv - st.left.cy) * depth_np / st.left.fx, depth_np], -1)
+    geo = float((np.abs(pts.numpy() - xyz) / depth_np[..., None]).max())
+    st_diff = max(float(((a.cpu() - b).abs() / b.abs().clamp(min=1e-6)).max()) for a, b in zip(outs[device], outs["cpu"])
+                  if a.is_floating_point())
+    print(f"stereo (cameras 0-1, baseline {st.baseline:.4f} m): depth round trip rel err {rt:.3e} (limit 1e-5), 3-D "
+          f"points against the pinhole rel err {geo:.3e}, all valid {bool(ok.all())}; card vs cpu rel diff {st_diff:.3e}")
+    require(rt <= 1e-5 and geo <= 1e-4 and bool(ok.all()) and st_diff <= 1e-6, "stereo: a gate missed")
+    counts = read_launches()
+    print(f"3-D chain path launches of K1-K4: {counts}")
+    require(not any(counts.values()), "a K1-K4 kernel ran on the 3-D chain")
+
+    # Host syncs as each entry point states.
+    cal_src, cb_src, tri_src = calibration, chessboard, tri_mod
+    sync_cases = [
+        ("detect_chessboard_native", lambda: detect_chessboard_native(imgs[0, 0], rows, cols),
+         {f"ops/chessboard.py:{source_line(cb_src, '.cpu().numpy()')}": 1}),
+        ("calibrate_camera", lambda: calibrate_camera(obj_d, obs_d[0]),
+         {f"ops/calibration.py:{source_line(cal_src, 'torch.linalg.eigh(A.transpose')}": 1,
+          f"ops/calibration.py:{source_line(cal_src, 'torch.linalg.eigh(Vm.T')}": 1,
+          f"geometry/se3.py:{source_line(se3, 'torch.linalg.svd(')}": 2}),
+        ("pairwise_extrinsics", lambda: pairwise_extrinsics(T_cam_board[0], T_cam_board[1]),
+         {f"ops/calibration.py:{source_line(cal_src, 'torch.linalg.eigh(qs.T')}": 1}),
+        ("joint_extrinsics_refine", lambda: joint_extrinsics_refine(*args, iterations=2), {}),
+        ("triangulate", lambda: triangulate(*tri_in[device]),
+         {f"ops/triangulate.py:{source_line(tri_src, 'torch.linalg.eigh(')}": 1}),
+        ("fit_body_from_body25", lambda: fit_body_from_body25(kp, conf, iterations=2), {}),
+        ("StereoCamera", lambda: st.disparity_image_to_3d(st.depth_to_disparity(imgs[0, 0] + 1.0)), {}),
+    ]
+    for label, fn, want in sync_cases:
+        torch.cuda.synchronize()
+        with recorded_syncs() as sites:
+            fn()
+        require_syncs(label, sites, want)
+    print("3-D chain stage ms, first calls (host clock, synchronized): " +
+          ", ".join(f"{k} {v:.2f}" for k, v in stage.items()))
+    warm = {
+        "detect_chessboard_native (a view)": lambda: detect_chessboard_native(imgs[0, 0], rows, cols),
+        "calibrate_camera (a camera)": lambda: calibrate_camera(obj_d, obs_d[0]),
+        "pairwise_extrinsics (a pair)": lambda: pairwise_extrinsics(T_cam_board[0], T_cam_board[1]),
+        "joint_extrinsics_refine (10 steps)": lambda: joint_extrinsics_refine(*args),
+        "triangulate (200 points)": lambda: triangulate(*tri_in[device]),
+        f"fit_body_from_body25 ({CHAIN_PEOPLE} people, 30 steps)": lambda: fit_body_from_body25(kp, conf),
+    }
+    print("3-D chain ms a call, warm (host clock, synchronized; median, min-max of 3): " +
+          ", ".join(f"{k} {fmt_ms(sync_ms(fn))}" for k, fn in warm.items()))
+    print(f"3-D chain phase: {time.perf_counter() - t_phase:.1f} s")
+
+
 def cli_call(argv):
     """``perception_tpu_torch.cli.main(argv)`` with the kernels' launch
     counts set to 0 just before and read just after, its stdout captured:
@@ -2486,6 +3217,9 @@ def main() -> int:
           f"matmul.allow_tf32={torch.backends.cuda.matmul.allow_tf32} "
           f"cudnn.allow_tf32={torch.backends.cudnn.allow_tf32}")
 
+    obj_scene = objects_scene()
+    eraser_cpu = start_eraser_cpu(obj_scene)  # beside the whole run
+
     t0 = time.perf_counter()
     with ThreadPoolExecutor(len(KERNELS)) as pool:  # one nvcc per source, all at once
         libs = list(pool.map(build.build, KERNELS))
@@ -2509,12 +3243,14 @@ def main() -> int:
     cli_launches = run_cli(device, scene)
     del scene
     mode_launches = run_cuboid_modes(device)
-    obj_launches = run_objects(device)
+    obj_launches, eraser = run_objects(device, obj_scene, eraser_cpu)
     track_launches = run_tracker(device)
     run_pose(device)
     run_face(device)
     run_facade(device)
     run_person_tracker(device)
+    leaf_plane_launches, leaf_surface_launches = run_leaf_nodes(device)
+    run_3d_chain(device)
 
     k1_times = time_kernel(device)
     k2_times = time_k2(device)
@@ -2524,6 +3260,7 @@ def main() -> int:
     print(f"cuboid end to end: B=1 {fps1:.2f} frames/s (passes {[round(r, 2) for r in runs1]}), "
           f"B={FRAMES} {fps8:.2f} frames/s (passes {[round(r, 2) for r in runs8]})")
 
+    eraser_spread(**eraser)
     print(f"run: {time.perf_counter() - t_run:.1f} s")
     print(json.dumps({"kernels": [
         *({
@@ -2537,13 +3274,14 @@ def main() -> int:
             **json_times(k1_times[bn]),
             "floor_ms": k1_times[bn]["floor_ms"],
         } for shape, launches, bn in (
-            ("B=1 N=8192 K=1024 (cuboid, one frame a call; with cli cuboid's)",
-             cuboid_b1_launches + cli_launches["cuboid"], (1, 8192)),
+            ("B=1 N=8192 K=1024 (cuboid, one frame a call; with cli cuboid's and the leaf nodes' ground planes)",
+             cuboid_b1_launches + cli_launches["cuboid"] + leaf_plane_launches, (1, 8192)),
             ("B=8 N=8192 K=1024 (cuboid batches: default, cc, p2p; with pcl_parity's one B=2 call)",
              cuboid_b8_launches + mode_launches, (8, 8192)),
             ("B=1 N=32768 K=1024 (detect_object; with cli objects')", obj_launches + cli_launches["objects"],
              (1, 32768)),
             ("B=1 N=24576 K=1024 (tracker)", track_launches, (1, 24576)),
+            ("B=1 N=8192 K=512 (surface_frame)", leaf_surface_launches, K1_SURFACE),
         )),
         {
             "name": "icp_gn",

@@ -26,6 +26,7 @@ from __future__ import annotations
 
 import argparse
 import json
+import zlib
 
 import numpy as np
 import torch
@@ -41,14 +42,22 @@ def _device(args) -> torch.device:
 
 
 def _read_image(path: str, color: bool) -> np.ndarray:
-    """A PNG through the port's codec, any other format through cv2 (RGB order)."""
+    """A PNG through the port's codec; any other format, and the PNG kinds
+    the codec refuses, through cv2 (RGB order), imported on use. Stops
+    with the file's name where it needs cv2 and cv2 is missing."""
     from perception_tpu_torch.io import png
 
     with open(path, "rb") as f:
         is_png = f.read(8) == png.SIGNATURE
     if is_png:
-        return png.read_png(path, color=color)
-    import cv2
+        try:
+            return png.read_png(path, color=color)
+        except (ValueError, zlib.error):
+            pass
+    try:
+        import cv2
+    except ImportError:
+        raise SystemExit(f"cannot read image {path}: io/png does not read it and cv2 is not installed") from None
 
     img = cv2.imread(path, cv2.IMREAD_COLOR if color else cv2.IMREAD_UNCHANGED)
     if img is None:
@@ -250,7 +259,10 @@ def cmd_pose(args) -> None:
     if not fixture_available():
         raise SystemExit("trained fixture missing; run tools/train_pose_fixture.py")
     if args.image:
-        img = _read_image(args.image, color=True).astype(np.float32) / 255.0
+        try:
+            img = _read_image(args.image, color=True).astype(np.float32) / 255.0
+        except OSError as e:
+            raise SystemExit(f"cannot read image {args.image}: {e}") from e
     else:
         from perception_tpu_torch.models.pose_data import render_people, sample_skeletons
 

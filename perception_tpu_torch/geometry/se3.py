@@ -29,6 +29,13 @@ def hat(omega: torch.Tensor) -> torch.Tensor:
     )
 
 
+def vee(omega_hat: torch.Tensor) -> torch.Tensor:
+    """Inverse of hat: (..., 3, 3) skew -> (..., 3)."""
+    return torch.stack(
+        [omega_hat[..., 2, 1], omega_hat[..., 0, 2], omega_hat[..., 1, 0]], dim=-1
+    )
+
+
 def _eye3(like: torch.Tensor) -> torch.Tensor:
     return torch.eye(3, dtype=like.dtype, device=like.device).expand(like.shape)
 
@@ -203,3 +210,21 @@ def matrix_to_quat(R: torch.Tensor) -> torch.Tensor:
     qs = torch.stack([q0, q1, q2, q3], dim=-2)  # (..., 4 candidates, 4)
     q = torch.gather(qs, -2, best[..., None, None].expand(best.shape + (1, 4)))[..., 0, :]
     return q / torch.linalg.vector_norm(q, dim=-1, keepdim=True)
+
+
+def _det3(M: torch.Tensor) -> torch.Tensor:
+    """Determinant of (..., 3, 3) by cofactors along the first row."""
+    return (
+        M[..., 0, 0] * (M[..., 1, 1] * M[..., 2, 2] - M[..., 1, 2] * M[..., 2, 1])
+        - M[..., 0, 1] * (M[..., 1, 0] * M[..., 2, 2] - M[..., 1, 2] * M[..., 2, 0])
+        + M[..., 0, 2] * (M[..., 1, 0] * M[..., 2, 1] - M[..., 1, 1] * M[..., 2, 0])
+    )
+
+
+def orthonormalize(R: torch.Tensor) -> torch.Tensor:
+    """Project (..., 3, 3) back onto SO(3) by SVD, det +1 enforced:
+    ``U diag(1, 1, det(U Vt)) Vt``. On CUDA the SVD reads the card twice."""
+    U, _, Vh = torch.linalg.svd(R)
+    d = torch.ones(R.shape[:-1], dtype=R.dtype, device=R.device)
+    d = torch.cat([d[..., :2], _det3(U @ Vh)[..., None]], dim=-1)
+    return (U * d[..., None, :]) @ Vh

@@ -2,15 +2,16 @@
 
 Counterpart of part of ``perception_tpu/io/producers.py``: the video
 file reader (``cv2``, imported on use), the sorted image-directory
-reader (PNG through the port's own codec, read ahead by the native
-prefetcher) and ``paced``, the fps-keeping wrapper. Each yields
-(timestamp, frame).
+reader (PNG through the port's own codec, any other file through cv2,
+read ahead by the native prefetcher) and ``paced``, the fps-keeping
+wrapper. Each yields (timestamp, frame).
 """
 
 from __future__ import annotations
 
 import glob
 import time
+import warnings
 import zlib
 from pathlib import Path
 from typing import Iterator, Tuple
@@ -48,15 +49,40 @@ class VideoReader:
         self.cap.release()
 
 
+def decode_frame(raw: bytes, path) -> np.ndarray | None:
+    """One file's bytes as the JAX reader decodes them
+    (``cv2.imdecode(IMREAD_UNCHANGED)``, channels reversed: RGB for colour
+    files, cv2's BGRA -> ARGB for four channels). A PNG that ``io/png``
+    reads goes through it; any other file, and the PNG kinds it refuses
+    (interlaced, palette, gray+alpha, sub-byte), through cv2, imported on
+    use. None where cv2 cannot decode the bytes either; a RuntimeError
+    naming ``path`` where cv2 is needed and not installed."""
+    from perception_tpu_torch.io.png import decode_png
+
+    try:
+        img = decode_png(raw)
+    except (ValueError, zlib.error):
+        img = None
+    if img is not None:
+        return img[..., [3, 0, 1, 2]] if img.ndim == 3 and img.shape[-1] == 4 else img
+    try:
+        import cv2
+    except ImportError as e:
+        raise RuntimeError(f"cannot decode {path}: io/png does not read it and cv2 is not installed") from e
+    img = cv2.imdecode(np.frombuffer(raw, np.uint8), cv2.IMREAD_UNCHANGED) if raw else None
+    if img is None:
+        return None
+    return img[..., ::-1] if img.ndim == 3 else img
+
+
 class ImageDirectoryReader:
-    """Sorted image-directory stream (OpenPose's ImageDirectoryReader) of
-    PNG files, with the JAX reader's frames: ``io/png.read_png``'s arrays
-    (``cv2.imread(IMREAD_UNCHANGED)``) with the channel order reversed as
-    the JAX reader reverses cv2's (RGB for colour files; its BGRA -> ARGB
-    for four channels) and the file's index as its timestamp. With
-    ``prefetch`` the native prefetcher (``runtime.FramePrefetcher``) reads
-    the files ahead on its threads; decoding stays on the caller's
-    thread. A file that cannot be read or decoded is skipped."""
+    """Sorted image-directory stream (OpenPose's ImageDirectoryReader) with
+    the JAX reader's frames (``decode_frame``) and the file's index as its
+    timestamp. With ``prefetch`` the native prefetcher
+    (``runtime.FramePrefetcher``) reads the files ahead on its threads;
+    decoding stays on the caller's thread. A file that neither io/png nor
+    cv2 can decode is skipped with a warning, as the JAX reader skips it;
+    where cv2 is needed and missing, the reader raises."""
 
     def __init__(self, directory, pattern: str = "*.png", prefetch: bool = True):
         self.paths = sorted(glob.glob(str(Path(directory) / pattern)))
@@ -66,20 +92,17 @@ class ImageDirectoryReader:
         return len(self.paths)
 
     def frames(self) -> Iterator[Tuple[float, np.ndarray]]:
-        from perception_tpu_torch.io.png import decode_png
         from perception_tpu_torch.runtime import FramePrefetcher
 
         if self.prefetch and self.paths:
             files = FramePrefetcher(self.paths, threads=2, ring=4)
         else:
             files = map(_read_bytes, self.paths)
-        for i, raw in enumerate(files):
-            try:
-                img = decode_png(raw)
-            except (ValueError, zlib.error):
+        for i, (path, raw) in enumerate(zip(self.paths, files)):
+            img = decode_frame(raw, path)
+            if img is None:
+                warnings.warn(f"ImageDirectoryReader: skipped {path}: it cannot be read or decoded")
                 continue
-            if img.ndim == 3 and img.shape[-1] == 4:
-                img = img[..., [3, 0, 1, 2]]  # cv2's BGRA reversed
             yield float(i), np.ascontiguousarray(img)
 
 

@@ -24,7 +24,7 @@ import torch
 
 from perception_tpu_torch._tensor import const
 from perception_tpu_torch.ops.features import _top_k
-from perception_tpu_torch.ops.points import apply_mask
+from perception_tpu_torch.ops.points import apply_mask, segment_sum
 
 
 class Clusters(NamedTuple):
@@ -165,11 +165,11 @@ def _rank_components(points, mask, point_root, n, min_size, max_size, max_cluste
     sizes = torch.where(slot_valid, top_vals, torch.zeros_like(top_vals))
     num = torch.sum(slot_valid, dtype=torch.int32)
 
-    # Centroids per dense slot. On CUDA index_add_ adds floats with atomics,
-    # so a centroid may differ from the CPU's in the last ulps.
+    # Centroids per dense slot; on CUDA a centroid may differ from the CPU's
+    # in the last ulps.
     seg = torch.where(labels >= 0, labels, torch.full_like(labels, max_clusters)).long()
     pw = points * (labels >= 0)[:, None]
-    sums = torch.zeros((max_clusters + 1, 3), dtype=points.dtype, device=dev).index_add_(0, seg, pw)[:max_clusters]
+    sums = segment_sum(pw, seg, max_clusters + 1)[:max_clusters]
     centroids = sums / torch.clamp(sizes[:, None].to(points.dtype), min=1.0)
     return Clusters(labels=labels, sizes=sizes, num_clusters=num, centroids=centroids)
 

@@ -1,7 +1,7 @@
 """Nearest-neighbor search: tiled brute force.
 
-Counterpart of ``perception_tpu/ops/nn.py``'s ``nearest_neighbor`` and
-``knn``. The distance tile is ``|q|^2 - 2 q.r^T + |r|^2``; the product
+Counterpart of ``perception_tpu/ops/nn.py``'s ``nearest_neighbor``,
+``radius_count`` and ``knn``. The distance tile is ``|q|^2 - 2 q.r^T + |r|^2``; the product
 ``q @ r^T`` is ``torch.matmul`` (the JAX package leaves it to XLA outside
 any kernel). Callers set ``torch.backends.cuda.matmul.allow_tf32 = False``
 on the card, or the distances lose all but three decimal digits.
@@ -74,6 +74,30 @@ def nearest_neighbor(
         best_d2 = torch.where(take, tile_best, best_d2)
         best_idx = torch.where(take, tile_arg + t * tile, best_idx)
     return best_idx, torch.clamp(best_d2, min=0.0)
+
+
+def radius_count(
+    query: torch.Tensor,
+    ref: torch.Tensor,
+    ref_mask: torch.Tensor,
+    radius: float,
+    tile: int = 4096,
+) -> torch.Tensor:
+    """Number of valid ref points within ``radius`` of each query point:
+    (Nq, 3), (Nr, 3), (Nr,) -> (Nq,) int32. Distances are the tiles'
+    ``|q|^2 - 2 q.r + |r|^2`` over sentinel-padded ref tiles, as in the JAX
+    package, so a point within rounding of the radius counts as it does
+    there."""
+    ref, tile, num_tiles = _padded_ref(ref, ref_mask, tile)
+    q_sq = torch.sum(query * query, dim=-1)
+    r2 = radius * radius
+    count = torch.zeros(query.shape[0], dtype=torch.int32, device=query.device)
+    for t in range(num_tiles):
+        ref_t = ref[t * tile:(t + 1) * tile]
+        r_sq = torch.sum(ref_t * ref_t, dim=-1)
+        d2 = q_sq[:, None] - 2.0 * (query @ ref_t.T) + r_sq[None, :]
+        count = count + torch.sum(d2 <= r2, dim=1, dtype=torch.int32)
+    return count
 
 
 def knn(

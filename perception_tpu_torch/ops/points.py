@@ -36,12 +36,30 @@ def passthrough(
     return mask & (v >= lo) & (v <= hi)
 
 
+def crop_box(points: torch.Tensor, mask: torch.Tensor, lo, hi) -> torch.Tensor:
+    """Axis-aligned box filter (inclusive); lo/hi are length-3."""
+    inside = torch.all((points >= const(lo, points)) & (points <= const(hi, points)), dim=-1)
+    return mask & inside
+
+
 def centroid(points: torch.Tensor, mask: torch.Tensor) -> torch.Tensor:
     """Masked mean over valid points: (..., N, 3), (..., N) -> (..., 3)."""
     w = mask.to(points.dtype)
     total = torch.sum(points * w[..., None], dim=-2)
     count = torch.sum(w, dim=-1, keepdim=True)
     return total / torch.clamp(count, min=1.0)
+
+
+def segment_sum(values: torch.Tensor, segment_ids: torch.Tensor, num_segments: int) -> torch.Tensor:
+    """Rows of ``values`` (N, ...) summed by segment -> (num_segments, ...),
+    the same on every call. On the CPU ``index_add_`` adds in row order. On
+    CUDA it adds floats with atomics in no fixed order, so a centroid moved
+    by an ulp from call to call; there ``index_put_`` with ``accumulate``
+    sorts the ids stably and adds each segment's rows in turn."""
+    out = values.new_zeros((num_segments,) + values.shape[1:])
+    if values.device.type == "cuda":
+        return out.index_put_((segment_ids,), values, accumulate=True)
+    return out.index_add_(0, segment_ids, values)
 
 
 def voxel_ids(points: torch.Tensor, origin: torch.Tensor, voxel_size, dims) -> torch.Tensor:
@@ -80,9 +98,9 @@ def voxel_downsample_with_attrs(
     mask), all at the input capacity N.
 
     The JAX package's ``lax.sort`` of (ids, iota) is a stable
-    ``torch.sort`` here and ``segment_sum`` is ``index_add_``. On CUDA
-    ``index_add_`` adds with atomics, so a centroid can differ from the
-    CPU's in the last ulp."""
+    ``torch.sort`` here and its ``segment_sum`` is ``segment_sum`` (the
+    same sums on every call; on CUDA a centroid can differ from the CPU's
+    in the last ulp)."""
     n = points.shape[0]
     vs = const(voxel_size, points)
     if origin is None:
@@ -107,15 +125,15 @@ def voxel_downsample_with_attrs(
     w = valid_sorted.to(points.dtype)
     if weights is not None:
         w = w * torch.clamp(torch.as_tensor(weights, dtype=points.dtype)[order], min=0.0)
-    sums = torch.zeros_like(points).index_add_(0, rank_sorted, points[order] * w[:, None])
-    counts = torch.zeros_like(w).index_add_(0, rank_sorted, w)
+    sums = segment_sum(points[order] * w[:, None], rank_sorted, n)
+    counts = segment_sum(w, rank_sorted, n)
     out_mask = counts > 0
     # Empty segments give 0/eps = 0 and are masked out anyway.
     denom = torch.clamp(counts, min=1e-12)[:, None]
     centroids = sums / denom
     attr_means = None
     if attrs is not None:
-        attr_sums = torch.zeros_like(attrs).index_add_(0, rank_sorted, attrs[order] * w[:, None])
+        attr_sums = segment_sum(attrs[order] * w[:, None], rank_sorted, n)
         attr_means = attr_sums / denom
     return apply_mask(centroids, out_mask), attr_means, out_mask
 
@@ -205,8 +223,7 @@ def dominant_blob_filter(
     rank = torch.where(valid_sorted, rank, torch.full_like(rank, n))
     counts = torch.zeros(n + 1, dtype=torch.int64, device=points.device)
     counts = counts.index_add_(0, rank, valid_sorted.to(torch.int64))[:n]
-    sums = torch.zeros((n + 1, 3), dtype=points.dtype, device=points.device)
-    sums = sums.index_add_(0, rank, points[order] * valid_sorted[:, None])[:n]
+    sums = segment_sum(points[order] * valid_sorted[:, None], rank, n + 1)[:n]
     best = torch.argmax(counts)
     center = sums[best] / torch.clamp(counts[best], min=1)
     d2 = torch.sum((points - center) ** 2, dim=-1)

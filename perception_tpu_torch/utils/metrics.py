@@ -1,7 +1,7 @@
 """Trajectory accuracy: ATE with Umeyama alignment (TUM definitions).
 
-A numpy copy of ``perception_tpu/utils/metrics.py``'s ``ate`` and
-``align_umeyama``, so the port needs no JAX.
+A numpy copy of ``perception_tpu/utils/metrics.py``'s ``ate``,
+``align_umeyama`` and ``rpe``, so the port needs no JAX.
 """
 
 from __future__ import annotations
@@ -53,4 +53,23 @@ def ate(estimated: np.ndarray, ground_truth: np.ndarray, align: bool = True) -> 
         median=float(np.median(err)),
         max=float(err.max()),
         alignment=T,
+    )
+
+
+def rpe(
+    estimated: np.ndarray,
+    ground_truth: np.ndarray,
+    delta: int = 1,
+) -> tuple[float, float]:
+    """RPE translation (m) and rotation (rad) RMSE at frame delta."""
+    t_errs, r_errs = [], []
+    for i in range(len(estimated) - delta):
+        de = np.linalg.inv(estimated[i]) @ estimated[i + delta]
+        dg = np.linalg.inv(ground_truth[i]) @ ground_truth[i + delta]
+        e = np.linalg.inv(dg) @ de
+        t_errs.append(np.linalg.norm(e[:3, 3]))
+        r_errs.append(np.arccos(np.clip((np.trace(e[:3, :3]) - 1) / 2, -1, 1)))
+    return (
+        float(np.sqrt(np.mean(np.square(t_errs)))),
+        float(np.sqrt(np.mean(np.square(r_errs)))),
     )

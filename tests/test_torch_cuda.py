@@ -7,7 +7,7 @@ the card is, which has no JAX; the tests' conftest imports jax, so run it
 there with ``--noconftest`` (see README.md).
 
 Tolerances: the kernel's counts equal the plain version's exactly (both
-round each multiply and add separately), at K1's four path shapes and at
+round each multiply and add separately), at K1's five path shapes and at
 K=1023, B=3 and N=777, on random points and on ``chip_smoke``'s edge
 inputs (points exactly at +-tau, one ulp past, -0.0, NaN and +-inf, valid
 and masked), one launch a call; every (point, hypothesis) pair of a launch
@@ -55,6 +55,13 @@ library builds; the PNG decoder's native and numpy unfilters agree
 bit for bit (no cv2 there); ``ImageDirectoryReader`` yields the same
 frames with and without the prefetcher; ``cli odometry`` without
 ``--cpu`` runs every step on the card.
+The leaf nodes and the 3-D chain: ``detect_red_object`` equal to the CPU
+on a noisy 640x480 scene; ``estimate_surface_frame`` on the tabletop
+scene with the same triplets, exactly 3 K1 launches, inlier counts equal
+and the pose within 1e-5; ``triangulate`` within 1e-4 m with ``valid``
+equal, and ``fit_body_from_body25`` within 1 mm of the CPU.
+``points.segment_sum`` (the centroids' float sums): 20 calls on the card
+equal to each other and to the CPU's in-order sums, bit for bit.
 """
 
 from pathlib import Path
@@ -105,7 +112,7 @@ def random_case(seed, b, n, k):
     return pts, mask, hyp
 
 
-K1_SHAPES = [(1, 8192, 1024), (8, 8192, 1024), (1, 32768, 1024), (1, 24576, 1024),
+K1_SHAPES = [(1, 8192, 1024), (8, 8192, 1024), (1, 32768, 1024), (1, 24576, 1024), (1, 8192, 512),
              (3, 777, 100), (1, 8192, 1023), (2, 777, 100), (3, 1, 1)]
 
 
@@ -119,7 +126,7 @@ def test_cuda_kernel_matches_plain_version(cuda_device, b, n, k):
     assert torch.equal(got, ransac_score_reference(pts, mask, hyp, 0.05))
 
 
-@pytest.mark.parametrize("b,n,k", K1_SHAPES[:6])
+@pytest.mark.parametrize("b,n,k", K1_SHAPES[:7])
 def test_cuda_kernel_matches_plain_version_on_edge_inputs(cuda_device, b, n, k):
     from chip_smoke import TAU, k1_edge_inputs
 
@@ -671,3 +678,74 @@ def test_cuda_cli_runs_on_the_card_by_default(cuda_device, monkeypatch, capsys):
     cli.main(["odometry", "--tum", str(TUM_MINI), "--max-frames", "4"])
     assert devices == [("cuda", "cuda")] * 3
     assert '"metric": "ate_rmse_m"' in capsys.readouterr().out
+
+
+def test_cuda_detect_red_object_matches_cpu(cuda_device):
+    from perception_tpu_torch.models.color_detect import detect_red_object, red_mask
+
+    rng = np.random.RandomState(0)
+    img = rng.randint(0, 256, (480, 640, 3), np.uint8)
+    img[..., 1] = np.maximum(img[..., 1], img[..., 0])
+    img[100:220, 200:380] = np.clip(np.array([200, 20, 20]) + rng.randint(-10, 11, (120, 180, 3)), 0, 255)
+    t = torch.from_numpy(img)
+    got, want = detect_red_object(t.to(cuda_device)), detect_red_object(t)
+    assert [int(v) for v in got] == [int(v) for v in want] == [190, 90, 389, 229, 1]
+    assert torch.equal(red_mask(t.to(cuda_device)).cpu(), red_mask(t))
+
+
+def test_cuda_surface_frame_matches_cpu(cuda_device):
+    from chip_smoke import surface_indices, tabletop_cloud
+    from perception_tpu_torch.models.cuboid import segment_ground_plane
+    from perception_tpu_torch.models.surface_frame import estimate_surface_frame
+
+    pts, _ = tabletop_cloud()
+    fit, dpts, box = segment_ground_plane(torch.from_numpy(pts), torch.ones(len(pts), dtype=torch.bool),
+                                          torch.Generator().manual_seed(0))
+    normal = fit.coefficients[:3]
+    idx = surface_indices(dpts, box, normal, torch.Generator().manual_seed(1))
+    want = estimate_surface_frame(dpts, box, normal, indices=idx)
+    before = ransac_score.launches
+    got = estimate_surface_frame(dpts.to(cuda_device), box.to(cuda_device), normal.to(cuda_device),
+                                 indices=[i.to(cuda_device) for i in idx])
+    torch.cuda.synchronize()
+    assert ransac_score.launches == before + 3
+    assert torch.equal(got.inlier_counts.cpu(), want.inlier_counts) and bool(got.valid) and bool(want.valid)
+    assert float((got.pose.cpu() - want.pose).abs().max()) <= 1e-5
+
+
+def test_cuda_triangulate_and_fit_match_cpu(cuda_device):
+    from chip_smoke import chain_people
+    from perception_tpu_torch.models.body_fit import fit_body_from_body25
+    from perception_tpu_torch.ops.triangulate import triangulate
+
+    rng = np.random.default_rng(0)
+    people = chain_people(rng, 3)
+    K = np.array([[600.0, 0, 320], [0, 600, 240], [0, 0, 1]])
+    P = np.stack([K @ np.concatenate([np.eye(3), [[-0.3 * c], [0.0], [0.0]]], 1) for c in range(4)])
+    X = people.reshape(-1, 3).astype(np.float64)
+    proj = np.einsum("cij,nj->nci", P, np.concatenate([X, np.ones((len(X), 1))], 1))
+    uv = (proj[..., :2] / proj[..., 2:] + rng.normal(0, 1.0, proj[..., :2].shape)).astype(np.float32)
+    vis = rng.random(uv.shape[:2]) >= 0.05
+    args = [torch.from_numpy(a) for a in (P.astype(np.float32), uv, vis)]
+    want = triangulate(*args)
+    got = triangulate(*(a.to(cuda_device) for a in args))
+    assert torch.equal(got.valid.cpu(), want.valid)
+    assert float((got.points.cpu() - want.points)[want.valid].abs().max()) <= 1e-4
+    kp = want.points.reshape(3, 25, 3)
+    conf = want.valid.reshape(3, 25).float() * 0.9
+    fw = fit_body_from_body25(kp, conf)
+    fg = fit_body_from_body25(kp.to(cuda_device), conf.to(cuda_device))
+    assert float((fg.joints.cpu() - fw.joints).abs().max()) <= 1e-3
+    assert float((fg.residual.cpu() - fw.residual).abs().max()) <= 1e-4
+
+
+@pytest.mark.parametrize("n,k", [(32768, 300), (32768, 9), (8192, 2000)])
+def test_cuda_segment_sum_is_fixed_order(cuda_device, n, k):
+    from perception_tpu_torch.ops.points import segment_sum
+
+    rng = np.random.default_rng(n + k)
+    v = torch.from_numpy(rng.normal(0, 1, (n, 3)).astype(np.float32))
+    ids = torch.from_numpy(rng.integers(0, k, n))
+    want = segment_sum(v, ids, k)
+    for _ in range(20):
+        assert torch.equal(segment_sum(v.to(cuda_device), ids.to(cuda_device), k).cpu(), want)

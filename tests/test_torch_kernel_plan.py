@@ -6,8 +6,10 @@ H100's 132 SMs passed in.
 K1's plan splits each frame's points over blocks of 128 hypotheses: the
 tests check that its blocks score every (point, hypothesis) pair exactly
 once at the four path shapes (B=1 and 8 at N=8192, N=32768, N=24576, all
-at K=1024) and at (3, 777, 100) and (1, 8192, 1023), and that each path
-shape puts at least 8 warps on each SM.
+at K=1024, and the surface frame's B=1 N=8192 K=512) and at (3, 777, 100)
+and (1, 8192, 1023), and that each K=1024 path shape puts at least 8 warps
+on each SM. At K=512 the plan's floor, one chunk a split, gives 128
+blocks: 7.76 warps an SM, the shape ``chip_smoke.py`` exempts.
 
 Each plan splits a scan over blocks: K2 the target axis, K3+K4 each query
 tile's window of table rows. The tests check that every target row or
@@ -45,7 +47,10 @@ def k1_tiles(plan, B, N, K):
                 yield b, pts, range(h * k1.HYPS_PER_BLOCK, min((h + 1) * k1.HYPS_PER_BLOCK, K))
 
 
-@pytest.mark.parametrize("B,N,K", K1_PATH_SHAPES + [(3, 777, 100), (1, 8192, 1023)])
+K1_SURFACE_SHAPE = (1, 8192, 512)
+
+
+@pytest.mark.parametrize("B,N,K", K1_PATH_SHAPES + [K1_SURFACE_SHAPE, (3, 777, 100), (1, 8192, 1023)])
 def test_k1_plan_scores_every_pair_once(B, N, K):
     plan = k1.launch_plan(B, N, K, SMS)
     seen = np.zeros((B, N, K), np.int32)
@@ -64,6 +69,12 @@ def test_k1_plan_fills_the_card_at_the_path_shapes(B, N, K):
     assert plan.warps_per_sm == plan.blocks * k1.WARPS / SMS >= 8
     # All resident at once: the kernel's launch bounds allow 4 blocks an SM.
     assert plan.blocks <= 4 * SMS
+
+
+def test_k1_plan_at_the_surface_frame_shape_is_one_chunk_a_split():
+    plan = k1.launch_plan(*K1_SURFACE_SHAPE, SMS)
+    assert (plan.hyp_blocks, plan.splits, plan.split_chunks, plan.blocks) == (4, 32, 1, 128)
+    assert plan.warps_per_sm == pytest.approx(128 * k1.WARPS / SMS) and plan.warps_per_sm < 8
 
 
 def test_k1_plan_takes_one_split_on_a_one_sm_card():
