@@ -13,7 +13,12 @@ service and tracker (``models/objects.py``, ``models/object_tracking.py``),
 the CNN facade (``wrapper.py``'s ``Perception`` over ``models/pose.py``,
 ``models/hand.py``, the face family ``models/face*.py`` and their
 fixtures, read by ``io/flax_msgpack.py``) and person tracking
-(``models/tracking.py`` on ``ops/lk.py``), with what they run, including the three kernels under ``csrc/``: fused
-RANSAC scoring, the fused Gauss-Newton ICP system and the voxel-hash
-query.
+(``models/tracking.py`` on ``ops/lk.py``), the command line (``cli.py``)
+and its file I/O, the leaf nodes and the 3-D chain, training
+(``models/train.py``, the training batches of ``models/*_data.py``, the
+fixtures' ``init_tiny`` and ``save_fixture``), checkpoints
+(``utils/checkpoint.py``) and the roofline accounting
+(``utils/roofline.py``), with what they run, including the three kernels
+under ``csrc/``: fused RANSAC scoring, the fused Gauss-Newton ICP system
+and the voxel-hash query.
 """

@@ -12,6 +12,13 @@ complex) and 3 (a numpy scalar). Arrays that flax split into chunks
 (leaves over 1 GiB) are joined again. ``msgpack_restore`` returns what
 ``flax.serialization.msgpack_restore`` returns: nested dicts and lists
 whose array leaves are read-only numpy views of the file's bytes.
+
+``msgpack_serialize`` and ``write_tree`` are the inverse for what the
+fixtures hold: nested dicts of ndarrays (and str, int, float, bool, None
+leaves), written as ``flax.serialization.to_bytes`` writes them: each
+map's keys in sorted order (``jax.tree_util`` rebuilds dicts so), each
+value in msgpack's shortest encoding, an ndarray as extension type 1.
+Leaves of 1 GiB and more, which flax splits into chunks, are refused.
 """
 
 from __future__ import annotations
@@ -145,3 +152,99 @@ def msgpack_restore(data: bytes):
 def read_tree(path) -> dict:
     """The flax tree saved at ``path`` (``flax.serialization.to_bytes``)."""
     return msgpack_restore(Path(path).read_bytes())
+
+
+_MAX_CHUNK = 2 ** 30  # flax's MAX_CHUNK_SIZE: larger leaves are written in chunks
+
+
+def _pack_len(n: int, first: int, widths: str = "BHI") -> bytes:
+    """A length header: the code ``first`` + i and ``n`` in the i-th of
+    ``widths`` (big-endian), the smallest that holds it."""
+    for i, fmt in enumerate(widths):
+        if n < 1 << (8 * struct.calcsize(fmt)):
+            return bytes([first + i]) + struct.pack(">" + fmt, n)
+    raise ValueError("msgpack: length too large")
+
+
+def _pack_int(n: int) -> bytes:
+    if 0 <= n <= 0x7F:
+        return bytes([n])
+    if -32 <= n < 0:
+        return struct.pack(">b", n)
+    if n >= 0:
+        for code, fmt, limit in ((0xCC, "B", 0xFF), (0xCD, "H", 0xFFFF), (0xCE, "I", 0xFFFFFFFF),
+                                 (0xCF, "Q", 0xFFFFFFFFFFFFFFFF)):
+            if n <= limit:
+                return bytes([code]) + struct.pack(">" + fmt, n)
+    else:
+        for code, fmt, limit in ((0xD0, "b", 0x80), (0xD1, "h", 0x8000), (0xD2, "i", 0x80000000),
+                                 (0xD3, "q", 0x8000000000000000)):
+            if -n <= limit:
+                return bytes([code]) + struct.pack(">" + fmt, n)
+    raise ValueError(f"msgpack: integer {n} out of range")
+
+
+def _pack_str(s: str) -> bytes:
+    b = s.encode("utf-8")
+    head = bytes([0xA0 | len(b)]) if len(b) < 32 else _pack_len(len(b), 0xD9)
+    return head + b
+
+
+def _pack_bin(b: bytes) -> bytes:
+    return _pack_len(len(b), 0xC4) + b
+
+
+def _pack_ext(code: int, payload: bytes) -> bytes:
+    n = len(payload)
+    fixed = {1: 0xD4, 2: 0xD5, 4: 0xD6, 8: 0xD7, 16: 0xD8}
+    if n in fixed:
+        return bytes([fixed[n]]) + struct.pack(">b", code) + payload
+    return _pack_len(n, 0xC7) + struct.pack(">b", code) + payload
+
+
+def _pack_ndarray(x: np.ndarray) -> bytes:
+    """flax's ndarray encoding: msgpack ``(shape, dtype name, raw bytes)``."""
+    if x.nbytes > _MAX_CHUNK:
+        raise ValueError("msgpack: leaves of 1 GiB and more are chunked by flax; not written here")
+    return _pack_ext(_EXT_NDARRAY, _pack([list(x.shape), x.dtype.name, x.tobytes("C")]))
+
+
+def _pack(x) -> bytes:
+    if x is None:
+        return b"\xc0"
+    if x is True or x is False:
+        return b"\xc3" if x else b"\xc2"
+    if isinstance(x, np.ndarray):
+        return _pack_ndarray(x)
+    if isinstance(x, np.generic):
+        return _pack_ext(_EXT_NPSCALAR, _pack([[], x.dtype.name, np.asarray(x).tobytes("C")]))
+    if isinstance(x, int):
+        return _pack_int(x)
+    if isinstance(x, float):
+        return b"\xcb" + struct.pack(">d", x)
+    if isinstance(x, str):
+        return _pack_str(x)
+    if isinstance(x, (bytes, bytearray)):
+        return _pack_bin(bytes(x))
+    if isinstance(x, (list, tuple)):
+        n = len(x)
+        head = bytes([0x90 | n]) if n < 16 else _pack_len(n, 0xDC, "HI")
+        return head + b"".join(_pack(v) for v in x)
+    if isinstance(x, dict):
+        n = len(x)
+        head = bytes([0x80 | n]) if n < 16 else _pack_len(n, 0xDE, "HI")
+        return head + b"".join(_pack_str(str(k)) + _pack(x[k]) for k in sorted(x, key=str))
+    raise TypeError(f"msgpack: cannot write a {type(x).__name__}")
+
+
+def msgpack_serialize(tree) -> bytes:
+    """The bytes ``flax.serialization.to_bytes(tree)`` writes for a tree of
+    nested dicts and lists over ndarrays."""
+    return _pack(tree)
+
+
+def write_tree(path, tree) -> None:
+    """Write ``tree`` at ``path`` as ``flax.serialization.to_bytes`` does."""
+    path = Path(path)
+    path.parent.mkdir(parents=True, exist_ok=True)
+    path.write_bytes(msgpack_serialize(tree))

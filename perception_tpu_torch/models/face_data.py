@@ -1,15 +1,21 @@
 """Synthetic face scenes for the face fixture.
 
-Counterpart of the scene half of ``perception_tpu/models/face_data.py``,
-in numpy: a rigid 70-point canonical 3-D face whose anchor landmarks are
+Counterpart of ``perception_tpu/models/face_data.py``: a rigid 70-point
+canonical 3-D face whose anchor landmarks are
 ``models/face.PNP_MODEL_POINTS``, an AU02 (brow raiser) deformation,
 random head poses drawn from a ``numpy.random.Generator`` and projected
-through a pinhole camera, and the analytic grayscale renderer (bright
-skin, dark brows, eye rings, pupils, nose and mouth) that both detectors
-fire on. ``render_face`` on the same scene arrays gives the JAX
-package's image to float32 rounding. The training targets
-(``landmark_heatmap_targets``, ``detector_targets``, ``make_face_batch``)
-are not ported yet.
+through a pinhole camera (numpy), and the analytic grayscale renderer
+(bright skin, dark brows, eye rings, pupils, nose and mouth) that both
+detectors fire on, in torch: ``render_faces_batch`` renders a batch on
+the caller's device, ``render_face`` and ``render_faces`` one image on
+the CPU, in numpy in and out. On the same scene arrays they give the JAX
+package's image to float32 rounding.
+
+The training half, in torch on the caller's device:
+``landmark_heatmap_targets``, ``detector_targets`` and
+``make_face_batch``. Its draws come from a ``numpy.random.Generator``
+(``draw_face_batch``) or are given (``draws=``), so a batch can be made
+from the JAX package's draws.
 """
 
 from __future__ import annotations
@@ -20,6 +26,14 @@ import numpy as np
 import torch
 
 from perception_tpu_torch.geometry import se3
+from perception_tpu_torch.models._render import (
+    crop_heatmaps,
+    gaussian_maps,
+    jittered_boxes,
+    pixel_grid,
+    point_distance,
+    segment_distance,
+)
 from perception_tpu_torch.models.face import NUM_FACE_LANDMARKS
 
 _F32 = np.float32
@@ -177,74 +191,6 @@ def stack_scenes(scenes) -> FaceScene:
     return FaceScene(*(np.stack([getattr(s, f) for s in scenes]) for f in FaceScene._fields))
 
 
-def _seg_dist(px, a, b):
-    ab = b - a
-    denom = np.maximum(np.dot(ab, ab), _F32(1e-8))
-    t = np.clip(((px - a) * ab).sum(-1) / denom, _F32(0.0), _F32(1.0))
-    proj = a + t[..., None] * ab
-    return np.linalg.norm(px - proj, axis=-1)
-
-
-def _face_layers(lm: np.ndarray, px: np.ndarray) -> Tuple[np.ndarray, np.ndarray]:
-    """One face's (skin, dark) fields in [0, 1] over the pixel grid."""
-    lm = np.asarray(lm, np.float32)
-    eye_span = np.linalg.norm(lm[45] - lm[36])
-    stroke = np.clip(eye_span * _F32(0.05), _F32(0.8), _F32(4.0))
-
-    # Skin: a soft ellipse over the landmarks' extent.
-    c = lm.mean(axis=0)
-    spread = np.sqrt(np.mean(np.sum((lm - c) ** 2, axis=-1)))
-    d_face = np.linalg.norm(px - c, axis=-1)
-    skin = np.clip(_F32(1.0) - (d_face - _F32(1.55) * spread) / (_F32(0.35) * spread), _F32(0.0), _F32(1.0))
-
-    # Dark feature strokes along the chains.
-    dmin = np.full(px.shape[:-1], 1e9, np.float32)
-    for chain in _CHAINS:
-        for i in range(len(chain) - 1):
-            dmin = np.minimum(dmin, _seg_dist(px, lm[chain[i]], lm[chain[i + 1]]))
-    line = np.clip(_F32(1.0) - (dmin - stroke) / _F32(1.2), _F32(0.0), _F32(1.0))
-
-    # Eye sockets + pupils: filled dark discs.
-    r_eye = np.clip(eye_span * _F32(0.085), _F32(1.5), _F32(8.0))
-    d_eye = np.minimum(np.linalg.norm(px - lm[68], axis=-1), np.linalg.norm(px - lm[69], axis=-1))
-    sockets = np.clip(_F32(1.0) - (d_eye - r_eye) / _F32(1.5), _F32(0.0), _F32(1.0))
-    return skin, np.maximum(line * _F32(0.85), sockets)
-
-
-def _compose(skin, dark, hw, rng: Optional[np.random.Generator], noise: Optional[np.ndarray]):
-    img = (_F32(40.0) + _F32(160.0) * skin) * (_F32(1.0) - _F32(0.8) * dark)  # bg 40, skin up to 200
-    if noise is None and rng is not None:
-        noise = rng.standard_normal(hw).astype(np.float32)
-    if noise is not None:
-        img = img + np.asarray(noise, np.float32) * _F32(2.0)
-    return np.clip(img, _F32(0.0), _F32(255.0))
-
-
-def _pixel_grid(hw):
-    yy, xx = np.mgrid[0:hw[0], 0:hw[1]]
-    return np.stack([xx, yy], -1).astype(np.float32)
-
-
-def render_face(scene: FaceScene, hw: Tuple[int, int], rng: Optional[np.random.Generator] = None,
-                noise: Optional[np.ndarray] = None) -> np.ndarray:
-    """Grayscale (H, W) float32 in [0, 255]: bright skin, dark features.
-    Noise of standard deviation 2: ``noise`` (H, W) standard normal
-    values, else drawn from ``rng``, else none."""
-    skin, dark = _face_layers(scene.landmarks2d, _pixel_grid(hw))
-    return _compose(skin, dark, hw, rng, noise)
-
-
-def render_faces(scenes: FaceScene, hw: Tuple[int, int], rng: Optional[np.random.Generator] = None,
-                 noise: Optional[np.ndarray] = None) -> np.ndarray:
-    """Several faces (``scenes`` stacked on a leading axis): the per-pixel
-    maximum of their layers, exact for disjoint faces."""
-    px = _pixel_grid(hw)
-    layers = [_face_layers(lm, px) for lm in scenes.landmarks2d]
-    skin = np.max([s for s, _ in layers], axis=0)
-    dark = np.max([d for _, d in layers], axis=0)
-    return _compose(skin, dark, hw, rng, noise)
-
-
 def crop_box_from_landmarks(uv: np.ndarray, margin: float = 1.35) -> np.ndarray:
     """Square crop box (x1, y1, x2, y2) around (..., 70, 2) landmarks."""
     uv = np.asarray(uv, np.float32)
@@ -252,3 +198,150 @@ def crop_box_from_landmarks(uv: np.ndarray, margin: float = 1.35) -> np.ndarray:
     c = _F32(0.5) * (lo + hi)
     half = _F32(0.5) * (hi - lo).max(axis=-1, keepdims=True) * _F32(margin)
     return np.concatenate([c - half, c + half], axis=-1)
+
+
+# --- renders and training batches (torch, on the caller's device) ---------
+
+def _face_layers(lm: torch.Tensor, X, Y) -> Tuple[torch.Tensor, torch.Tensor]:
+    """The (skin, dark) fields in [0, 1], each (..., H, W), of faces with
+    landmarks (..., 70, 2)."""
+    eye_span = torch.linalg.vector_norm(lm[..., 45, :] - lm[..., 36, :], dim=-1)[..., None, None]
+    stroke = torch.clamp(eye_span * 0.05, 0.8, 4.0)
+
+    # Skin: a soft ellipse over the landmarks' extent.
+    c = lm.mean(-2)
+    spread = torch.sqrt(((lm - c[..., None, :]) ** 2).sum(-1).mean(-1))[..., None, None]
+    skin = torch.clamp(1.0 - (point_distance(X, Y, c) - 1.55 * spread) / (0.35 * spread), 0.0, 1.0)
+
+    # Dark feature strokes along the chains.
+    dmin = None
+    for chain in _CHAINS:
+        for i in range(len(chain) - 1):
+            d = segment_distance(X, Y, lm[..., chain[i], :], lm[..., chain[i + 1], :])
+            dmin = d if dmin is None else torch.minimum(dmin, d)
+    line = torch.clamp(1.0 - (dmin - stroke) / 1.2, 0.0, 1.0)
+
+    # Eye sockets + pupils: filled dark discs.
+    r_eye = torch.clamp(eye_span * 0.085, 1.5, 8.0)
+    d_eye = torch.minimum(point_distance(X, Y, lm[..., 68, :]), point_distance(X, Y, lm[..., 69, :]))
+    sockets = torch.clamp(1.0 - (d_eye - r_eye) / 1.5, 0.0, 1.0)
+    return skin, torch.maximum(line * 0.85, sockets)
+
+
+def _compose(skin: torch.Tensor, dark: torch.Tensor, noise: Optional[torch.Tensor]) -> torch.Tensor:
+    img = (40.0 + 160.0 * skin) * (1.0 - 0.8 * dark)  # bg 40, skin up to 200
+    if noise is not None:
+        img = img + noise * 2.0
+    return torch.clamp(img, 0.0, 255.0)
+
+
+def render_faces_batch(landmarks2d: torch.Tensor, hw: Tuple[int, int],
+                       noise: Optional[torch.Tensor] = None) -> torch.Tensor:
+    """Grayscale renders of a batch, one face each, on the landmarks'
+    device: bright skin, dark features, plus Gaussian noise of standard
+    deviation 2. (B, 70, 2) -> (B, H, W) in [0, 255]; ``noise`` (B, H, W)
+    standard normal or None."""
+    X, Y = pixel_grid(hw, landmarks2d.device)
+    return _compose(*_face_layers(landmarks2d, X, Y), noise)
+
+
+def _cpu_noise(hw, rng: Optional[np.random.Generator], noise: Optional[np.ndarray]) -> Optional[torch.Tensor]:
+    if noise is None and rng is not None:
+        noise = rng.standard_normal(hw).astype(np.float32)
+    return None if noise is None else torch.from_numpy(np.asarray(noise, np.float32))
+
+
+def render_face(scene: FaceScene, hw: Tuple[int, int], rng: Optional[np.random.Generator] = None,
+                noise: Optional[np.ndarray] = None) -> np.ndarray:
+    """``render_faces_batch`` of one scene on the CPU: (H, W) float32 in
+    [0, 255]. The noise is ``noise`` (H, W) standard normal values, else
+    drawn from ``rng``, else none."""
+    lm = torch.from_numpy(np.asarray(scene.landmarks2d, np.float32))
+    n = _cpu_noise(hw, rng, noise)
+    return render_faces_batch(lm[None], hw, None if n is None else n[None])[0].numpy()
+
+
+def render_faces(scenes: FaceScene, hw: Tuple[int, int], rng: Optional[np.random.Generator] = None,
+                 noise: Optional[np.ndarray] = None) -> np.ndarray:
+    """Several faces (``scenes`` stacked on a leading axis) in one (H, W)
+    image on the CPU: the per-pixel maximum of their layers, exact for
+    disjoint faces; the noise as in ``render_face``."""
+    X, Y = pixel_grid(hw, "cpu")
+    skin, dark = _face_layers(torch.from_numpy(np.asarray(scenes.landmarks2d, np.float32)), X, Y)
+    return _compose(skin.amax(0), dark.amax(0), _cpu_noise(hw, rng, noise)).numpy()
+
+
+def landmark_heatmap_targets(uv_crop: torch.Tensor, map_hw: Tuple[int, int], stride: int = 4,
+                             sigma: float = 1.0) -> torch.Tensor:
+    """(..., 70, h, w) Gaussian targets from (..., 70, 2) crop-space
+    landmark pixels, channel-first."""
+    return crop_heatmaps(uv_crop, map_hw, stride, sigma)
+
+
+def detector_targets(box: torch.Tensor, map_hw: Tuple[int, int], stride: int = 4, sigma: float = 2.0):
+    """Centre-heatmap + log-size targets for ``FaceDetectorNet`` of (..., 4)
+    boxes: (heat, logsize, weight), each (..., h, w). The heat is a
+    Gaussian at the box centre, logsize = log(box side / stride),
+    regressed only near the centre (weight = heat)."""
+    X, Y = pixel_grid(map_hw, box.device)
+    heat = gaussian_maps(X, Y, 0.5 * (box[..., :2] + box[..., 2:]) / float(stride) - 0.5, sigma)
+    logsize = torch.log(torch.clamp((box[..., 2] - box[..., 0]) / float(stride), min=1e-3))
+    return heat, logsize[..., None, None].expand(heat.shape), heat
+
+
+class FaceDraws(NamedTuple):
+    """The random draws of a ``make_face_batch`` batch."""
+    scene: FaceScene                # stacked: landmarks2d (B, 70, 2), au02 (B,), ...
+    noise: np.ndarray               # (B, H, W) standard normal: the render noise
+    jitter: np.ndarray              # (B, 3) uniform [-1, 1): the box augmentation
+    level: Optional[np.ndarray]     # (B,) uniform [0, 1): the pixel-noise level over pixel_noise
+    pixel: Optional[np.ndarray]     # (B, H, W) standard normal: the pixel noise
+
+
+def draw_face_batch(generator: np.random.Generator, batch: int, hw: Tuple[int, int] = (128, 128),
+                    fx: float = 300.0, rot_range: float = 0.30, pixel_noise: float = 0.0) -> FaceDraws:
+    scene = stack_scenes([sample_face(generator, hw, fx, fx, rot_range=rot_range) for _ in range(batch)])
+    noise = generator.standard_normal((batch, *hw), dtype=np.float32)
+    jitter = generator.uniform(-1.0, 1.0, (batch, 3)).astype(np.float32)
+    level = pixel = None
+    if pixel_noise > 0.0:
+        level = generator.random(batch, dtype=np.float32)
+        pixel = generator.standard_normal((batch, *hw), dtype=np.float32)
+    return FaceDraws(scene, noise, jitter, level, pixel)
+
+
+def make_face_batch(generator: Optional[np.random.Generator], batch: int, hw: Tuple[int, int] = (128, 128),
+                    crop: int = 96, fx: float = 300.0, rot_range: float = 0.30, pixel_noise: float = 0.0,
+                    device="cuda", draws: Optional[FaceDraws] = None) -> dict:
+    """A training batch on ``device``: "image" (B, H, W) renders in [0, 255],
+    "crop" (B, 1, crop, crop) in [0, 1] through the jittered true box (at
+    inference the crop comes from the detector, whose boxes differ from
+    the landmarks' box), "heatmaps" (B, 70, crop/4, crop/4), "uv_crop"
+    (B, 70, 2), "au" (B, 17) targets (5 x AU02's raise), the detector's
+    "det_heat", "det_size", "det_weight" (B, H/4, W/4) from the true box,
+    and "scene" (numpy). ``rot_range`` widens the head rotations and
+    ``pixel_noise`` adds per-scene noise at a random level in
+    [0, pixel_noise] of 255. The draws come from ``generator`` unless
+    ``draws`` gives them."""
+    from perception_tpu_torch.models.face import AU_NAMES
+    from perception_tpu_torch.models.hand import crop_images
+
+    if draws is None:
+        draws = draw_face_batch(generator, batch, hw, fx, rot_range, pixel_noise)
+    T = lambda a: torch.from_numpy(np.array(a, np.float32)).to(device)
+    lm = T(draws.scene.landmarks2d)
+    img = render_faces_batch(lm, hw, T(draws.noise))
+    if pixel_noise > 0.0:
+        lvl = T(draws.level)[:, None, None] * pixel_noise
+        img = torch.clamp(img + T(draws.pixel) * lvl * 255.0, 0.0, 255.0)
+    true_box = T(crop_box_from_landmarks(draws.scene.landmarks2d))
+    det_heat, det_size, det_w = detector_targets(true_box, (hw[0] // 4, hw[1] // 4))
+    box = jittered_boxes(true_box, T(draws.jitter))
+    patch = crop_images(img, box, crop)
+    sx = torch.full_like(box[:, 0], float(crop)) / (box[:, 2] - box[:, 0])
+    uv_crop = (lm - box[:, None, :2]) * sx[:, None, None]
+    maps = landmark_heatmap_targets(uv_crop, (crop // 4, crop // 4))
+    au = torch.zeros((lm.shape[0], len(AU_NAMES)), device=device)
+    au[:, AU_NAMES.index("AU02")] = 5.0 * T(draws.scene.au02)
+    return {"image": img, "crop": (patch / 255.0)[:, None], "heatmaps": maps, "uv_crop": uv_crop, "au": au,
+            "det_heat": det_heat, "det_size": det_size, "det_weight": det_w, "scene": draws.scene}

@@ -7,6 +7,9 @@ by ``io.flax_msgpack`` (no flax needed) and mapped by
 ``face_detector_from_flax``; float16 in the file, float32 in the nets.
 ``load_fixture`` returns the three nets in a dict under the JAX
 package's parameter keys: ``"landmark"``, ``"au"``, ``"det"``.
+``init_tiny`` draws fresh nets (an ``nn.ModuleDict`` under those keys,
+so they train as one module) and ``save_fixture`` writes them in the
+same format, which the JAX package's ``load_fixture`` reads.
 """
 
 from __future__ import annotations
@@ -17,10 +20,21 @@ from typing import Tuple
 import numpy as np
 import torch
 
-from perception_tpu_torch.convert import au_head_from_flax, face_detector_from_flax, facenet_from_flax
-from perception_tpu_torch.io.flax_msgpack import read_tree
+from torch import nn
+
+from perception_tpu_torch.convert import (
+    au_head_from_flax,
+    au_head_to_flax,
+    face_detector_from_flax,
+    face_detector_to_flax,
+    facenet_from_flax,
+    facenet_to_flax,
+)
+from perception_tpu_torch.io.flax_msgpack import read_tree, write_tree
 from perception_tpu_torch.models.face import ActionUnitHead, FaceLandmarkNet, decode_landmarks, normalize_landmarks
 from perception_tpu_torch.models.face_detect import FaceDetectorNet, decode_detector_net
+from perception_tpu_torch.models.pose import flax_init_
+from perception_tpu_torch.models.pose_fixture import _half
 
 FIXTURE_HW = (128, 128)     # full-image render size used in training
 FIXTURE_CROP = 96           # landmark-net input crop
@@ -39,6 +53,23 @@ def tiny_au_head() -> ActionUnitHead:
 
 def tiny_detector() -> FaceDetectorNet:
     return FaceDetectorNet(features=(16, 32, 64))
+
+
+def init_tiny(generator: torch.Generator, device="cuda") -> nn.ModuleDict:
+    """Fresh fixture nets {"landmark", "au", "det"} with flax's default
+    initialisation drawn from ``generator`` (a CPU generator), in that
+    order, ready to train."""
+    nets = nn.ModuleDict({"landmark": tiny_facenet(), "au": tiny_au_head(), "det": tiny_detector()})
+    for key in ("landmark", "au", "det"):
+        flax_init_(nets[key], generator)
+    return nets.to(device)
+
+
+def save_fixture(nets, path=FIXTURE_PATH) -> None:
+    """Write the three nets as the JAX package's ``save_fixture`` does
+    (float16 flax trees under "landmark", "au", "det")."""
+    write_tree(path, _half({"landmark": facenet_to_flax(nets["landmark"]), "au": au_head_to_flax(nets["au"]),
+                            "det": face_detector_to_flax(nets["det"])}))
 
 
 def load_fixture(device="cuda", path=FIXTURE_PATH) -> dict:

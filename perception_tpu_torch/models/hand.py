@@ -16,7 +16,7 @@ import torch
 
 from perception_tpu_torch._tensor import const
 from perception_tpu_torch.models.face import FaceLandmarkNet, decode_landmarks  # same net and crop decode
-from perception_tpu_torch.ops.resize import scale_and_translate
+from perception_tpu_torch.ops.resize import scale_and_translate, scale_and_translate_each
 
 NUM_HAND_LANDMARKS = 21
 
@@ -51,20 +51,30 @@ class HandLandmarkNet(FaceLandmarkNet):
         super().__init__(width, in_channels, NUM_HAND_LANDMARKS)
 
 
-def crop_image(image: torch.Tensor, box: torch.Tensor, out_size: int) -> torch.Tensor:
-    """Linear crop of (H, W) or (H, W, C) to (..., out_size, out_size[, C]),
-    one crop per (..., 4) float box (x1, y1, x2, y2)."""
+def _box_warp(box: torch.Tensor, out_size: int):
+    """(..., 4) boxes (x1, y1, x2, y2) -> the (scale, translation) (..., 2),
+    in (y, x) order, that map each box onto an out_size square."""
     x1, y1, x2, y2 = box.unbind(-1)
     size = const(float(out_size), box)
     scale_x = size / torch.clamp(x2 - x1, min=1e-3)
     scale_y = size / torch.clamp(y2 - y1, min=1e-3)
+    return torch.stack([scale_y, scale_x], dim=-1), torch.stack([-y1 * scale_y, -x1 * scale_x], dim=-1)
+
+
+def crop_image(image: torch.Tensor, box: torch.Tensor, out_size: int) -> torch.Tensor:
+    """Linear crop of (H, W) or (H, W, C) to (..., out_size, out_size[, C]),
+    one crop per (..., 4) float box (x1, y1, x2, y2)."""
+    scale, translation = _box_warp(box, out_size)
     img = image if image.dim() == 2 else image.movedim(-1, 0)  # (H, W) or (C, H, W)
-    out = scale_and_translate(
-        img, (out_size, out_size),
-        scale=torch.stack([scale_y, scale_x], dim=-1),
-        translation=torch.stack([-y1 * scale_y, -x1 * scale_x], dim=-1),
-    )
+    out = scale_and_translate(img, (out_size, out_size), scale=scale, translation=translation)
     return out if image.dim() == 2 else out.movedim(-3, -1)
+
+
+def crop_images(images: torch.Tensor, boxes: torch.Tensor, out_size: int) -> torch.Tensor:
+    """``crop_image`` of each (H, W) image of (B, H, W) by its own box of
+    (B, 4), in one warp: (B, out_size, out_size)."""
+    scale, translation = _box_warp(boxes, out_size)
+    return scale_and_translate_each(images, (out_size, out_size), scale, translation)
 
 
 @torch.no_grad()

@@ -4,6 +4,8 @@ Counterpart of ``perception_tpu/models/hand_fixture.py``. The weights are
 the JAX package's ``tests/fixtures/handnet_tiny.msgpack``, read in place
 by ``io.flax_msgpack`` (no flax needed) and mapped by
 ``convert.handnet_from_flax``; float16 in the file, float32 in the net.
+``init_tiny`` draws a fresh net and ``save_fixture`` writes one in the
+same format, which the JAX package's ``load_fixture`` reads.
 """
 
 from __future__ import annotations
@@ -14,11 +16,13 @@ import numpy as np
 import torch
 
 from perception_tpu_torch._tensor import const
-from perception_tpu_torch.convert import handnet_from_flax
-from perception_tpu_torch.io.flax_msgpack import read_tree
+from perception_tpu_torch.convert import handnet_from_flax, handnet_to_flax
+from perception_tpu_torch.io.flax_msgpack import read_tree, write_tree
 from perception_tpu_torch.models.face import decode_landmarks
 from perception_tpu_torch.models.hand import LEFT_ARM, RIGHT_ARM, HandLandmarkNet, crop_image, hand_roi_from_pose
 from perception_tpu_torch.models.hand_data import hand_box, render_hand, sample_hand
+from perception_tpu_torch.models.pose import flax_init_
+from perception_tpu_torch.models.pose_fixture import _half
 
 FIXTURE_HW = (96, 96)
 FIXTURE_CROP = 64
@@ -27,6 +31,17 @@ FIXTURE_PATH = Path(__file__).resolve().parents[2] / "tests" / "fixtures" / "han
 
 def tiny_handnet() -> HandLandmarkNet:
     return HandLandmarkNet(width=24)
+
+
+def init_tiny(generator: torch.Generator, device="cuda") -> HandLandmarkNet:
+    """A fresh fixture net with flax's default initialisation drawn from
+    ``generator`` (a CPU generator), ready to train."""
+    return flax_init_(tiny_handnet(), generator).to(device)
+
+
+def save_fixture(net: HandLandmarkNet, path=FIXTURE_PATH) -> None:
+    """Write ``net`` as the JAX package's ``save_fixture`` does (float16)."""
+    write_tree(path, _half(handnet_to_flax(net)))
 
 
 def load_fixture(device="cuda", path=FIXTURE_PATH) -> HandLandmarkNet:

@@ -272,18 +272,24 @@ def extract_people(
     return decode_people(pafs, hms, pairs, num_parts=P, paf_stride=8.0, **decode_kwargs)
 
 
-def init_posenet(generator: torch.Generator, topology: str = "BODY_25", device="cuda") -> PoseNet:
-    """A ``PoseNet`` for ``topology`` with flax's default initialisation,
-    drawn from ``generator`` (a CPU generator): kernels LeCun-normal
-    (truncated to 2 standard deviations, scaled to unit variance over the
-    fan-in), biases 0."""
-    parts, pairs = lookup_topology(topology)
-    net = PoseNet(num_parts=len(parts), num_limbs=len(pairs))
+def flax_init_(net: nn.Module, generator: torch.Generator) -> nn.Module:
+    """flax's default initialisation of every ``Conv2d`` and ``Linear`` of
+    ``net``, in place, in module order, drawn from ``generator`` (a CPU
+    generator): kernels LeCun-normal (truncated to 2 standard deviations,
+    scaled to unit variance over the fan-in), biases 0."""
     with torch.no_grad():
         for module in net.modules():
-            if isinstance(module, nn.Conv2d):
+            if isinstance(module, (nn.Conv2d, nn.Linear)):
                 w = module.weight
-                std = math.sqrt(1.0 / (w.shape[1] * w.shape[2] * w.shape[3])) / 0.87962566103423978
+                std = math.sqrt(1.0 / math.prod(w.shape[1:])) / 0.87962566103423978
                 nn.init.trunc_normal_(w, 0.0, std, -2.0 * std, 2.0 * std, generator=generator)
                 module.bias.zero_()
+    return net
+
+
+def init_posenet(generator: torch.Generator, topology: str = "BODY_25", device="cuda") -> PoseNet:
+    """A ``PoseNet`` for ``topology`` with flax's default initialisation
+    (``flax_init_``), drawn from ``generator`` (a CPU generator)."""
+    parts, pairs = lookup_topology(topology)
+    net = flax_init_(PoseNet(num_parts=len(parts), num_limbs=len(pairs)), generator)
     return net.requires_grad_(False).eval().to(device)

@@ -1,19 +1,28 @@
 """Synthetic multi-person skeleton scenes.
 
-Counterpart of the scene half of ``perception_tpu/models/pose_data.py``,
-in numpy: stick-figure people placed at random from a
-``numpy.random.Generator`` and rendered with a distinct colour per limb
-class. ``render_people`` on the same scene arrays gives the JAX
-package's image to float32 rounding. The training targets
-(``make_targets``, ``make_batch``) are not ported yet.
+Counterpart of ``perception_tpu/models/pose_data.py``: stick-figure
+people placed at random from a ``numpy.random.Generator`` (numpy) and
+rendered in torch with a distinct colour per limb class:
+``render_people_batch`` renders a batch of scenes on the caller's
+device, ``render_people`` one scene on the CPU, in numpy in and out. On
+the same scene arrays they give the JAX package's image to float32
+rounding.
+
+The training half, in torch on the caller's device: ``make_targets``
+(the CMU two-branch targets, channel-first) and ``make_batch``. The
+draws come from a ``numpy.random.Generator`` (``draw_batch``) and can be
+given instead (``draws=``), so a batch can be made from the JAX
+package's draws.
 """
 
 from __future__ import annotations
 
-from typing import NamedTuple, Tuple
+from typing import NamedTuple, Optional, Tuple
 
 import numpy as np
+import torch
 
+from perception_tpu_torch.models._render import gaussian_maps, pixel_grid, point_distance, segment_distance
 from perception_tpu_torch.models.pose import MPI_15_PAIRS
 
 # Canonical MPI_15 skeleton in a unit box (x right, y down).
@@ -93,30 +102,95 @@ def stack_scenes(scenes) -> SkeletonScene:
     return SkeletonScene(np.stack([s.joints for s in scenes]), np.stack([s.valid for s in scenes]))
 
 
-def _capsule_dist(px, a, b):
-    """Distance from pixel grid px (H, W, 2) to segment a-b (2,)."""
-    ab = b - a
-    denom = np.maximum(np.dot(ab, ab), _F32(1e-8))
-    t = np.clip(((px - a) * ab).sum(-1) / denom, _F32(0.0), _F32(1.0))
-    proj = a + t[..., None] * ab
-    return np.linalg.norm(px - proj, axis=-1)
+# --- renders and training batches (torch, on the caller's device) ---------
+
+def render_people_batch(joints: torch.Tensor, valid: torch.Tensor, hw: Tuple[int, int],
+                        limb_width: float = 2.5) -> torch.Tensor:
+    """Stick-figure RGB renders of a batch on ``joints``' device: coloured
+    capsules per limb, white joint dots, a dark-gray background; joints
+    (B, N, P, 2), valid (B, N) -> (B, H, W, 3) float32 in [0, 1]."""
+    X, Y = pixel_grid(hw, joints.device)
+    img = None
+    for l, (a, b) in enumerate(MPI_15_PAIRS):
+        d = segment_distance(X, Y, joints[..., a, :], joints[..., b, :])  # (B, N, H, W)
+        alpha = torch.clamp(1.0 - (d - limb_width) / 1.5, 0.0, 1.0)
+        layer = torch.stack([alpha * float(c) for c in _LIMB_COLORS[l]], -1)
+        img = layer if img is None else torch.maximum(img, layer)
+    dj = point_distance(X, Y, joints).amin(-3)  # (B, N, H, W)
+    dots = torch.clamp(1.0 - (dj - 1.5) / 1.0, 0.0, 1.0)
+    img = torch.maximum(img, dots[..., None]) * valid[..., None, None, None].to(torch.float32)
+    return torch.clamp(0.12 + img.amax(1), 0.0, 1.0)
 
 
 def render_people(scene: SkeletonScene, hw: Tuple[int, int], limb_width: float = 2.5) -> np.ndarray:
-    """Stick-figure RGB render of one scene: coloured capsules per limb,
-    white joint dots, a dark-gray background. (H, W, 3) float32 in [0, 1]."""
-    H, W = hw
-    yy, xx = np.mgrid[0:H, 0:W]
-    px = np.stack([xx, yy], -1).astype(np.float32)
-    fg = np.zeros((H, W, 3), np.float32)
-    for joints, valid in zip(np.asarray(scene.joints, np.float32), np.asarray(scene.valid)):
-        img = np.zeros((H, W, 3), np.float32)
-        for l, (a, b) in enumerate(MPI_15_PAIRS):
-            d = _capsule_dist(px, joints[a], joints[b])
-            alpha = np.clip(_F32(1.0) - (d - _F32(limb_width)) / _F32(1.5), _F32(0.0), _F32(1.0))
-            img = np.maximum(img, alpha[..., None] * _LIMB_COLORS[l])
-        dj = np.linalg.norm(px[None] - joints[:, None, None, :], axis=-1)
-        dots = np.clip(_F32(1.0) - (dj.min(0) - _F32(1.5)) / _F32(1.0), _F32(0.0), _F32(1.0))
-        img = np.maximum(img, dots[..., None])
-        fg = np.maximum(fg, img * _F32(valid))
-    return np.clip(_F32(0.12) + fg, _F32(0.0), _F32(1.0))
+    """``render_people_batch`` of one scene (joints (N, P, 2), valid (N,))
+    on the CPU: (H, W, 3) float32 in [0, 1]."""
+    joints = torch.from_numpy(np.asarray(scene.joints, np.float32))[None]
+    valid = torch.from_numpy(np.asarray(scene.valid, bool))[None]
+    return render_people_batch(joints, valid, hw, limb_width)[0].numpy()
+
+
+def make_targets(joints: torch.Tensor, valid: torch.Tensor, map_hw: Tuple[int, int], stride: int = 8,
+                 sigma: float = 1.2, paf_width: float = 0.8) -> Tuple[torch.Tensor, torch.Tensor]:
+    """CMU two-branch training targets at map resolution, on ``joints``'
+    device, for (..., N, P, 2) joints and (..., N) valid people of the
+    MPI_15 skeleton.
+
+    Returns (paf (..., 2L, h, w), heatmap (..., P+1, h, w)), channel-first
+    (channel 2l + c is limb l's x / y): part heatmaps are the
+    max-over-people Gaussian, PAFs the averaged unit limb direction inside
+    each limb capsule, background = 1 - max(parts)."""
+    X, Y = pixel_grid(map_hw, joints.device)
+    jm = joints / float(stride)
+    g = gaussian_maps(X, Y, jm, sigma) * valid[..., None, None, None].to(torch.float32)  # (..., N, P, h, w)
+    hm = g.amax(-4)
+    background = torch.clamp(1.0 - hm.amax(-3), 0.0, 1.0)
+    heatmap = torch.cat([hm, background[..., None, :, :]], -3)
+
+    pafs = []
+    for a, b in MPI_15_PAIRS:
+        ja, jb = jm[..., a, :], jm[..., b, :]  # (..., N, 2)
+        inside = (segment_distance(X, Y, ja, jb) < paf_width) & valid[..., None, None]  # (..., N, h, w)
+        u = (jb - ja) / torch.clamp(torch.linalg.vector_norm(jb - ja, dim=-1, keepdim=True), min=1e-6)
+        vec = inside[..., None, :, :].to(torch.float32) * u[..., None, None]  # (..., N, 2, h, w)
+        cnt = torch.clamp(inside.sum(-3), min=1)[..., None, :, :]
+        pafs.append(vec.sum(-4) / cnt)  # (..., 2, h, w)
+    return torch.cat(pafs, -3), heatmap
+
+
+class PoseDraws(NamedTuple):
+    """The random draws of a ``make_batch`` batch."""
+    scene: SkeletonScene            # joints (B, N, P, 2), valid (B, N)
+    level: Optional[np.ndarray]     # (B,) uniform [0, 1): the noise level over pixel_noise
+    noise: Optional[np.ndarray]     # (B, H, W, 3) standard normal
+
+
+def draw_batch(generator: np.random.Generator, batch: int, hw: Tuple[int, int], n_people: int = 2,
+               pixel_noise: float = 0.0) -> PoseDraws:
+    """``batch`` skeleton scenes, then (with ``pixel_noise``) the noise draws."""
+    scene = stack_scenes([sample_skeletons(generator, hw, n_people) for _ in range(batch)])
+    if pixel_noise <= 0.0:
+        return PoseDraws(scene, None, None)
+    level = generator.random(batch, dtype=np.float32)
+    return PoseDraws(scene, level, generator.standard_normal((batch, *hw, 3), dtype=np.float32))
+
+
+def make_batch(generator: Optional[np.random.Generator], batch: int, hw: Tuple[int, int], n_people: int = 2,
+               stride: int = 8, pixel_noise: float = 0.0, device="cuda", draws: Optional[PoseDraws] = None) -> dict:
+    """One training batch on ``device``: images (B, 3, H, W) in [0, 1],
+    their targets ("paf" (B, 2L, h, w), "heatmap" (B, P+1, h, w)) and the
+    scenes (numpy). ``pixel_noise`` > 0 adds per-scene Gaussian noise at a
+    random level in [0, pixel_noise] of full scale (the robustness
+    augmentation of the held-out noise families). The draws come from
+    ``generator`` unless ``draws`` gives them."""
+    if draws is None:
+        draws = draw_batch(generator, batch, hw, n_people, pixel_noise)
+    joints = torch.from_numpy(np.array(draws.scene.joints, np.float32)).to(device)
+    valid = torch.from_numpy(np.array(draws.scene.valid, bool)).to(device)
+    images = render_people_batch(joints, valid, hw)
+    if pixel_noise > 0.0:
+        lvl = torch.from_numpy(np.array(draws.level, np.float32)).to(device)[:, None, None, None] * pixel_noise
+        noise = torch.from_numpy(np.array(draws.noise, np.float32)).to(device)
+        images = torch.clamp(images + noise * lvl, 0.0, 1.0)
+    paf, heatmap = make_targets(joints, valid, (hw[0] // stride, hw[1] // stride), stride)
+    return {"image": images.permute(0, 3, 1, 2).contiguous(), "paf": paf, "heatmap": heatmap, "scene": draws.scene}

@@ -4,6 +4,9 @@ Counterpart of ``perception_tpu/models/pose_fixture.py``. The weights are
 the JAX package's ``tests/fixtures/posenet_mpi15_tiny.msgpack``, read in
 place by ``io.flax_msgpack`` (no flax needed) and mapped by
 ``convert.posenet_from_flax``; float16 in the file, float32 in the net.
+``init_tiny`` draws a fresh net and ``save_fixture`` writes one in the
+same format (``convert.posenet_to_flax``, rounded to float16), which the
+JAX package's ``load_fixture`` reads.
 """
 
 from __future__ import annotations
@@ -14,9 +17,9 @@ from typing import Tuple
 import numpy as np
 import torch
 
-from perception_tpu_torch.convert import posenet_from_flax
-from perception_tpu_torch.io.flax_msgpack import read_tree
-from perception_tpu_torch.models.pose import PoseNet, extract_people
+from perception_tpu_torch.convert import posenet_from_flax, posenet_to_flax
+from perception_tpu_torch.io.flax_msgpack import read_tree, write_tree
+from perception_tpu_torch.models.pose import PoseNet, extract_people, flax_init_
 from perception_tpu_torch.models.pose_data import render_people, sample_skeletons, stack_scenes
 
 FIXTURE_HW = (128, 128)
@@ -32,6 +35,22 @@ def tiny_posenet() -> PoseNet:
         num_parts=15, num_limbs=14, num_stages=2,
         backbone_widths=(16, 24, 32), stage_width=64, stage_depth=3,
     )
+
+
+def init_tiny(generator: torch.Generator, device="cuda") -> PoseNet:
+    """A fresh fixture net with flax's default initialisation drawn from
+    ``generator`` (a CPU generator), ready to train."""
+    return flax_init_(tiny_posenet(), generator).to(device)
+
+
+def _half(tree):
+    return {k: _half(v) for k, v in tree.items()} if isinstance(tree, dict) else np.asarray(tree, np.float16)
+
+
+def save_fixture(net: PoseNet, path=FIXTURE_PATH) -> None:
+    """Write ``net`` as the JAX package's ``save_fixture`` does: its flax
+    tree in float16, serialised by flax's msgpack."""
+    write_tree(path, _half(posenet_to_flax(net)))
 
 
 def load_fixture(device="cuda", path=FIXTURE_PATH) -> PoseNet:

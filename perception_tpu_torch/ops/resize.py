@@ -86,6 +86,16 @@ def resize(x: torch.Tensor, out_hw: Tuple[int, int]) -> torch.Tensor:
     return _apply(x, wy, wx)
 
 
+def scale_and_translate_each(x: torch.Tensor, out_hw: Tuple[int, int], scale: torch.Tensor,
+                             translation: torch.Tensor) -> torch.Tensor:
+    """``scale_and_translate`` with one warp per image: ``x`` (B..., H, W)
+    and ``scale``, ``translation`` (B..., 2) -> (B..., out_h, out_w)."""
+    H, W = x.shape[-2:]
+    wy = compute_weight_mat(H, out_hw[0], scale[..., 0], translation[..., 0])
+    wx = compute_weight_mat(W, out_hw[1], scale[..., 1], translation[..., 1])
+    return _apply(x, wy, wx)
+
+
 def scale_and_translate(x: torch.Tensor, out_hw: Tuple[int, int], scale: torch.Tensor,
                         translation: torch.Tensor) -> torch.Tensor:
     """``jax.image.scale_and_translate`` over the last two axes of ``x``

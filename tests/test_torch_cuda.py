@@ -62,6 +62,14 @@ and the pose within 1e-5; ``triangulate`` within 1e-4 m with ``valid``
 equal, and ``fit_body_from_body25`` within 1 mm of the CPU.
 ``points.segment_sum`` (the centroids' float sums): 20 calls on the card
 equal to each other and to the CPU's in-order sums, bit for bit.
+The training path: one ``make_train_step`` SGD step of the full-width
+MPI_15 PoseNet at 368x368, B=8 (``chip_smoke.run_training``'s batch), on
+the card against the CPU from the same weights and batch: the loss within
+1e-5 relative, each gradient within 2e-3 of its tensor's largest, the
+parameters after the step within 1e-6 (``chip_smoke.step_against_cpu``).
+``roofline.measure_stage`` of a 512x256 by 256x128 matrix product: a
+positive time by CUDA events, exactly 2 m n k operations, and shares of
+the peaks on a card in its table.
 """
 
 from pathlib import Path
@@ -749,3 +757,28 @@ def test_cuda_segment_sum_is_fixed_order(cuda_device, n, k):
     want = segment_sum(v, ids, k)
     for _ in range(20):
         assert torch.equal(segment_sum(v.to(cuda_device), ids.to(cuda_device), k).cpu(), want)
+
+
+def test_cuda_full_width_training_step_matches_cpu(cuda_device):
+    import chip_smoke
+    from perception_tpu_torch.models import train
+    from perception_tpu_torch.models.pose import init_posenet
+    from perception_tpu_torch.models.pose_data import make_batch
+
+    net = init_posenet(torch.Generator().manual_seed(chip_smoke.TRAIN_SEED), chip_smoke.TRAIN_TOPOLOGY, cuda_device)
+    batch = make_batch(np.random.default_rng(chip_smoke.TRAIN_SEED), chip_smoke.TRAIN_BATCH, chip_smoke.TRAIN_HW,
+                       n_people=chip_smoke.TRAIN_PEOPLE, device=cuda_device)
+    trained = chip_smoke.step_against_cpu("full-width step", net, batch, train.pose_loss)
+    assert all(p.device.type == "cuda" for p in trained.parameters())
+
+
+def test_cuda_measure_stage_times_a_matmul(cuda_device):
+    from perception_tpu_torch.utils import roofline
+
+    a = torch.randn(512, 256, device=cuda_device)
+    b = torch.randn(256, 128, device=cuda_device)
+    st = roofline.measure_stage("matmul", torch.matmul, a, b, reps=5, nbytes=4.0 * (512 * 256 + 256 * 128 + 512 * 128))
+    assert st.ms > 0.0 and st.flops == 2.0 * 512 * 256 * 128
+    assert st.gflops_per_s == pytest.approx(st.flops / (st.ms * 1e-3) / 1e9)
+    if roofline.device_peaks(cuda_device) is not None:
+        assert st.mfu_f32_pct is not None and st.hbm_pct is not None and st.bound != "unknown"
