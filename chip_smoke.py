@@ -138,6 +138,24 @@ set to 0 just before it and read just after:
   640x480) saved with ``save_npz`` after frame 11 of 24, loaded into a
   fresh state and resumed: the same promotions, poses within 1e-4 of the
   uninterrupted run's.
+- the multi-device layer, which runs none of the kernels either (its
+  per-rank work is plain PyTorch, its collectives ``torch.distributed``):
+  ``perception_tpu_torch.parallel.dryrun.run``, whose ranks are spawned
+  processes, so this process never joins a process group, at the dry
+  run's headline shapes (distributed ICP, BA, both pose graphs, the
+  data-parallel step of example 06's MPI_15 PoseNet at 368x368, B=8,
+  map-sharded odometry; the dry run's docstring), each rank held to a
+  single-rank run of the step and to the truth, its replicated outputs
+  bit-identical across ranks: 1 rank over NCCL, then 2 and 4 ranks
+  sharing the card over gloo (gloo moves the CUDA tensors itself through
+  host memory; NCCL takes one rank a card), and the same 2 ranks on the
+  CPU, untimed and without their own single-rank runs, against which the
+  card's 2 are held (ICP and map transforms, BA's poses and landmarks,
+  the pose graphs' poses within 1e-4; the training step's loss within
+  1e-5 relative and each gradient within 2e-3 of its tensor's largest);
+  ms a call of each step at each rank count and the data-parallel step's
+  share of the f32 peak. Ranks that share one card show the structure of
+  the sharding, not a cluster's speed.
 
 Each kernel is timed at its path's shapes against its plain version, in
 turns (plain, kernel, kernel, plain): the kernel's eager wrapper call by
@@ -328,6 +346,12 @@ FIXTURE_BATCH = 16       # the pose and face fixture trainers' batch
 RESUME_FRAMES = 24       # SLAM resumed mid-stream: the sweep's first frames at 640x480
 RESUME_CUT = 12          # frames before the checkpoint
 RESUME_TOL = 1e-4        # m and rotation entries: the resumed poses against the uninterrupted run's
+
+
+MULTICHIP_RUNS = (("nccl", "cuda", 1), ("gloo", "cuda", 2), ("gloo", "cuda", 4), ("gloo", "cpu", 2))
+MULTICHIP_STEPS = ("icp", "ba", "pose_graph", "relaxer", "train", "map_odometry")
+MULTICHIP_HOST_CORES = 8     # the card's host: a fleet's ranks share its cores (torch threads a rank)
+MULTICHIP_TRANSFORM_TOL = 1e-4  # the card's fleet against the CPU's: transforms, poses and landmarks
 
 
 def require(ok, message):
@@ -3228,6 +3252,49 @@ def run_training(device):
           f"({sum(bool(p) for _, p in ref)}), poses max diff {diff:.3e} against the uninterrupted run")
     require(same_promotions and diff <= RESUME_TOL, "SLAM resume: the resumed trajectory differs")
     print(f"training phase: {time.perf_counter() - t_phase:.1f} s")
+    return flops
+
+
+def run_multichip(train_flops):
+    """The multi-device dry run (module docstring): each fleet's ranks are
+    spawned processes (``dryrun.run``), so this process never joins a
+    process group."""
+    from perception_tpu_torch.parallel import dryrun
+
+    t_phase = time.perf_counter()
+    torch.cuda.empty_cache()  # the ranks share the card with this process
+    runs = {}
+    for backend, dev, ranks in MULTICHIP_RUNS:
+        t0 = time.perf_counter()
+        # The CPU fleet is compared, not timed, and not held to its own single rank: the card's fleets are.
+        runs[(backend, dev, ranks)] = dryrun.run(ranks, backend, dev, reps=0 if dev == "cpu" else 3,
+                                                 threads=max(1, MULTICHIP_HOST_CORES // ranks), single=dev == "cuda")
+        print(f"  (fleet of {ranks} on {dev} over {backend}: {time.perf_counter() - t0:.1f} s)")
+    card, cpu = ({name: r[0] for name, r in runs[key].items()} for key in (("gloo", "cuda", 2), ("gloo", "cpu", 2)))
+    diffs = {f"{step}/{key}": float(np.abs(card[step][key] - cpu[step][key]).max()) for step, key in
+             (("icp", "transforms"), ("ba", "poses_wc"), ("ba", "landmarks"), ("map_odometry", "transforms"),
+              ("pose_graph", "poses"), ("relaxer", "poses"))}
+    ba_costs = [float(r["ba"][k]) for r in (card, cpu) for k in ("initial_cost", "final_cost")]
+    loss_rel = abs(float(card["train"]["loss"]) - float(cpu["train"]["loss"])) / abs(float(cpu["train"]["loss"]))
+    grads = card["train"]["grads"]
+    grad_err, grad_at = max((float(np.abs(g - cpu["train"]["grads"][n]).max() /
+                                   max(np.abs(cpu["train"]["grads"][n]).max(), 1e-30)), n) for n, g in grads.items())
+    print("multichip card (R=2, gloo) against the CPU fleet (R=2, gloo): " +
+          ", ".join(f"{k} {v:.3e}" for k, v in diffs.items()) +
+          f"; BA costs {ba_costs[0]:.4f} -> {ba_costs[1]:.3e} (card) / {ba_costs[2]:.4f} -> {ba_costs[3]:.3e} "
+          f"(CPU); train loss {loss_rel:.3e} relative, gradients within {grad_err:.3e} of their largest ({grad_at})")
+    require(max(diffs.values()) <= MULTICHIP_TRANSFORM_TOL, "multichip: the card's fleet differs from the CPU's")
+    require(loss_rel <= TRAIN_LOSS_RTOL and grad_err <= TRAIN_GRAD_TOL,
+            "multichip: the card's data-parallel step differs from the CPU's")
+    for (backend, dev, ranks), r in runs.items():
+        if dev == "cuda":
+            ms = r["train"][2]
+            print(f"multichip R={ranks} {backend}: ms a call: " +
+                  ", ".join(f"{name} {r[name][2]:.3f}" for name in MULTICHIP_STEPS) +
+                  f"; the data-parallel step {train_flops / 1e9:.3f} GFLOP at {ms:.3f} ms, "
+                  f"{train_flops / (ms / 1e3) / 1e12:.3f} TFLOP/s, share of the f32 peak "
+                  f"{train_flops / PEAK_F32_OPS / (ms / 1e3):.4f}")
+    print(f"multichip phase: {time.perf_counter() - t_phase:.1f} s")
 
 
 def cli_call(argv):
@@ -3551,7 +3618,8 @@ def main() -> int:
     run_person_tracker(device)
     leaf_plane_launches, leaf_surface_launches = run_leaf_nodes(device)
     run_3d_chain(device)
-    run_training(device)
+    train_flops = run_training(device)
+    run_multichip(train_flops)
 
     k1_times = time_kernel(device)
     k2_times = time_k2(device)

@@ -16,9 +16,13 @@ fixtures, read by ``io/flax_msgpack.py``) and person tracking
 (``models/tracking.py`` on ``ops/lk.py``), the command line (``cli.py``)
 and its file I/O, the leaf nodes and the 3-D chain, training
 (``models/train.py``, the training batches of ``models/*_data.py``, the
-fixtures' ``init_tiny`` and ``save_fixture``), checkpoints
+fixtures' ``init_tiny`` and ``save_fixture``, ``jax.random``'s key
+stream in numpy in ``utils/jax_random.py``), checkpoints
 (``utils/checkpoint.py``) and the roofline accounting
-(``utils/roofline.py``), with what they run, including the three kernels
+(``utils/roofline.py``), the multi-device layer on ``torch.distributed``
+(``parallel/``: the rank mesh, distributed ICP, BA and pose graphs,
+map-sharded odometry, data-parallel training, the multi-process runtime
+and its dry run), with what they run, including the three kernels
 under ``csrc/``: fused RANSAC scoring, the fused Gauss-Newton ICP system
 and the voxel-hash query.
 """

@@ -15,7 +15,9 @@ The training half, in torch on the caller's device:
 ``landmark_heatmap_targets``, ``detector_targets`` and
 ``make_face_batch``. Its draws come from a ``numpy.random.Generator``
 (``draw_face_batch``) or are given (``draws=``), so a batch can be made
-from the JAX package's draws.
+from the JAX package's draws: ``draw_face_batch_from_key`` and
+``sample_face_from_key`` replay them from a JAX key in numpy
+(``utils.jax_random``).
 """
 
 from __future__ import annotations
@@ -35,6 +37,7 @@ from perception_tpu_torch.models._render import (
     segment_distance,
 )
 from perception_tpu_torch.models.face import NUM_FACE_LANDMARKS
+from perception_tpu_torch.utils import jax_random
 
 _F32 = np.float32
 
@@ -176,6 +179,24 @@ def sample_face(rng: np.random.Generator, hw: Tuple[int, int], fx: float, fy: fl
     return scene_from_pose(rot, txy, z, _sample_au02(rng), hw, fx, fy)
 
 
+def sample_face_from_key(key: np.ndarray, hw: Tuple[int, int], fx: float, fy: float, rot_range: float = 0.30,
+                         z_range: Tuple[float, float] = (0.45, 0.75)) -> FaceScene:
+    """``sample_face`` with the JAX package's draws: its ``sample_face(key,
+    ...)`` for a JAX key (``utils.jax_random``), in float32 as JAX takes
+    them."""
+    H, W = hw
+    k1, k2, k3, k4 = jax_random.split(key, 4)
+    rot = jax_random.uniform(k1, (3,), -rot_range, rot_range)
+    z = jax_random.uniform(k2, (), z_range[0], z_range[1])
+    lim = np.maximum(np.array([(W / 2.0 - 8.0) / fx, (H / 2.0 - 8.0) / fy], _F32) * z - _F32(0.085), _F32(0.0))
+    txy = jax_random.uniform(k3, (2,), -1.0, 1.0) * lim
+    if jax_random.bernoulli(k4, 0.5):
+        au02 = jax_random.uniform(jax_random.fold_in(k4, 1), (), 0.6, 1.0)
+    else:
+        au02 = jax_random.uniform(jax_random.fold_in(k4, 2), (), 0.0, 0.15)
+    return scene_from_pose(rot, txy, z, au02, hw, fx, fy)
+
+
 def sample_face_at(rng: np.random.Generator, hw: Tuple[int, int], fx: float, fy: float,
                    txy: Tuple[float, float], z: float, rot_range: float = 0.15, au02=None) -> FaceScene:
     """A face at an explicit position (metres, camera frame): the
@@ -308,6 +329,22 @@ def draw_face_batch(generator: np.random.Generator, batch: int, hw: Tuple[int, i
         level = generator.random(batch, dtype=np.float32)
         pixel = generator.standard_normal((batch, *hw), dtype=np.float32)
     return FaceDraws(scene, noise, jitter, level, pixel)
+
+
+def draw_face_batch_from_key(key: np.ndarray, batch: int, hw: Tuple[int, int] = (128, 128), fx: float = 300.0,
+                             rot_range: float = 0.30, pixel_noise: float = 0.0) -> FaceDraws:
+    """The draws of the JAX package's ``make_face_batch(key, batch, ...)``
+    for a JAX key (``utils.jax_random``): its split into ``batch`` keys,
+    each split in three for the scene, the render noise (and, folded with
+    7, the pixel-noise level, then folded with 1 its noise) and the box
+    jitter."""
+    k1, k2, k3 = np.moveaxis(jax_random.split(jax_random.split(key, batch), 3), -2, 0)
+    scenes = stack_scenes([sample_face_from_key(k, hw, fx, fx, rot_range=rot_range) for k in k1])
+    level = pixel = None
+    if pixel_noise > 0.0:
+        nk = jax_random.fold_in(k2, 7)
+        level, pixel = jax_random.uniform(nk), jax_random.normal(jax_random.fold_in(nk, 1), hw)
+    return FaceDraws(scenes, jax_random.normal(k2, hw), jax_random.uniform(k3, (3,), -1.0, 1.0), level, pixel)
 
 
 def make_face_batch(generator: Optional[np.random.Generator], batch: int, hw: Tuple[int, int] = (128, 128),

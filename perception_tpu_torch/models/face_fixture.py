@@ -8,14 +8,15 @@ by ``io.flax_msgpack`` (no flax needed) and mapped by
 ``load_fixture`` returns the three nets in a dict under the JAX
 package's parameter keys: ``"landmark"``, ``"au"``, ``"det"``.
 ``init_tiny`` draws fresh nets (an ``nn.ModuleDict`` under those keys,
-so they train as one module) and ``save_fixture`` writes them in the
-same format, which the JAX package's ``load_fixture`` reads.
+so they train as one module) from a JAX seed or a ``torch.Generator``,
+and ``save_fixture`` writes them in the same format, which the JAX
+package's ``load_fixture`` reads.
 """
 
 from __future__ import annotations
 
 from pathlib import Path
-from typing import Tuple
+from typing import Tuple, Union
 
 import numpy as np
 import torch
@@ -35,6 +36,7 @@ from perception_tpu_torch.models.face import ActionUnitHead, FaceLandmarkNet, de
 from perception_tpu_torch.models.face_detect import FaceDetectorNet, decode_detector_net
 from perception_tpu_torch.models.pose import flax_init_
 from perception_tpu_torch.models.pose_fixture import _half
+from perception_tpu_torch.utils import jax_random
 
 FIXTURE_HW = (128, 128)     # full-image render size used in training
 FIXTURE_CROP = 96           # landmark-net input crop
@@ -55,13 +57,28 @@ def tiny_detector() -> FaceDetectorNet:
     return FaceDetectorNet(features=(16, 32, 64))
 
 
-def init_tiny(generator: torch.Generator, device="cuda") -> nn.ModuleDict:
+_CONVERTERS = (("landmark", facenet_to_flax, facenet_from_flax), ("au", au_head_to_flax, au_head_from_flax),
+               ("det", face_detector_to_flax, face_detector_from_flax))
+
+
+def init_tiny(seed: Union[int, torch.Generator], device="cuda") -> nn.ModuleDict:
     """Fresh fixture nets {"landmark", "au", "det"} with flax's default
-    initialisation drawn from ``generator`` (a CPU generator), in that
-    order, ready to train."""
+    initialisation, ready to train. ``seed`` is a JAX seed (an int): the
+    weights of the JAX package's ``init_tiny(jax.random.key(seed))``, drawn
+    by ``utils.jax_random`` (equal but for a few weights one or two ulps
+    apart); or a ``torch.Generator`` (a CPU generator) to draw from, in
+    that order. (The JAX function takes a key; this one an int or a
+    generator.)"""
     nets = nn.ModuleDict({"landmark": tiny_facenet(), "au": tiny_au_head(), "det": tiny_detector()})
-    for key in ("landmark", "au", "det"):
-        flax_init_(nets[key], generator)
+    if isinstance(seed, torch.Generator):
+        for key, _, _ in _CONVERTERS:
+            flax_init_(nets[key], seed)
+        return nets.to(device)
+    keys = jax_random.split(jax_random.key(seed), 3)
+    with torch.no_grad():
+        for (key, to_flax, from_flax), k in zip(_CONVERTERS, keys):
+            tree = jax_random.flax_init_params(to_flax(nets[key]), k)
+            nets[key].load_state_dict(from_flax(tree, nets[key], "cpu"))
     return nets.to(device)
 
 
@@ -107,24 +124,41 @@ def landmarks_from_crop(lm_net: FaceLandmarkNet, patch: torch.Tensor, box: torch
     return decode_landmarks(maps.reshape(lead + maps.shape[1:]), box)
 
 
-def evaluate(params: dict, rng: np.random.Generator, n_scenes: int = 16, rot_range: float = 0.30,
-             z_range=(0.45, 0.75), pixel_noise: float = 0.0, device="cuda") -> Tuple[float, float, float]:
+def evaluate(params: dict, rng: Union[np.random.Generator, np.ndarray], n_scenes: int = 16,
+             rot_range: float = 0.30, z_range=(0.45, 0.75), pixel_noise: float = 0.0,
+             device="cuda") -> Tuple[float, float, float]:
     """(mean landmark error in image px on the true crops, AU02 separation =
     the least intensity on raised brows - the most on neutral ones, mean
-    detector IoU against the true face box) over ``n_scenes`` scenes drawn
-    from ``rng``: each a ``sample_face``, its noisy render, and with
-    ``pixel_noise`` more noise of that fraction of 255."""
+    detector IoU against the true face box) over ``n_scenes`` scenes: each
+    a ``sample_face``, its noisy render, and with ``pixel_noise`` more
+    noise of that fraction of 255. ``rng`` is a numpy generator to draw
+    them from, or a JAX key (``utils.jax_random``): the scenes and noise
+    of the JAX package's ``evaluate(params, key)``, scene i from
+    ``fold_in(key, i)`` split in two."""
     from perception_tpu_torch.models.face import iou
-    from perception_tpu_torch.models.face_data import crop_box_from_landmarks, render_face, sample_face
+    from perception_tpu_torch.models.face_data import (
+        crop_box_from_landmarks,
+        render_face,
+        sample_face,
+        sample_face_from_key,
+    )
     from perception_tpu_torch.models.hand import crop_image
 
     errs, raised, neutral, ious = [], [], [], []
-    for _ in range(n_scenes):
-        scene = sample_face(rng, FIXTURE_HW, FIXTURE_FX, FIXTURE_FX, rot_range=rot_range, z_range=z_range)
-        img = render_face(scene, FIXTURE_HW, rng=rng)
+    for i in range(n_scenes):
+        if isinstance(rng, np.random.Generator):
+            scene = sample_face(rng, FIXTURE_HW, FIXTURE_FX, FIXTURE_FX, rot_range=rot_range, z_range=z_range)
+            img = render_face(scene, FIXTURE_HW, rng=rng)
+            if pixel_noise > 0.0:
+                extra = rng.standard_normal(img.shape).astype(np.float32)
+        else:
+            k1, k2 = jax_random.split(jax_random.fold_in(rng, i))
+            scene = sample_face_from_key(k1, FIXTURE_HW, FIXTURE_FX, FIXTURE_FX, rot_range=rot_range, z_range=z_range)
+            img = render_face(scene, FIXTURE_HW, noise=jax_random.normal(k2, FIXTURE_HW))
+            if pixel_noise > 0.0:
+                extra = jax_random.normal(jax_random.fold_in(k2, 99), img.shape)
         if pixel_noise > 0.0:
-            img = np.clip(img + rng.standard_normal(img.shape).astype(np.float32) * np.float32(pixel_noise * 255.0),
-                          np.float32(0.0), np.float32(255.0))
+            img = np.clip(img + extra * np.float32(pixel_noise * 255.0), np.float32(0.0), np.float32(255.0))
         box_np = crop_box_from_landmarks(scene.landmarks2d)
         gray, box = torch.from_numpy(img).to(device), torch.from_numpy(box_np).to(device)
         uv, m, _ = landmarks_from_crop(params["landmark"], crop_image(gray, box, FIXTURE_CROP) / 255.0, box)

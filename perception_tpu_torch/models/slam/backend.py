@@ -32,11 +32,17 @@ What differs from the JAX package, and why:
   per-edge ``jacfwd``.
 - ``lax.scan`` loops are Python loops of fixed count; the LM accept and
   reject are tensor ``where``s, with no host read.
+
+Both solvers take a ``reduce`` hook: a function that sums a list of
+tensors over the processes sharing the observations or edges, applied to
+each iteration's normal equations and to each cost's sum of squares
+(``parallel/ba_dist`` and ``parallel/pg_dist`` pass an ``all_reduce``).
+By default there is one process and nothing is reduced.
 """
 
 from __future__ import annotations
 
-from typing import NamedTuple, Optional, Tuple
+from typing import Callable, List, NamedTuple, Optional, Tuple
 
 import torch
 import torch.autograd.forward_ad as fwAD
@@ -44,6 +50,12 @@ import torch.autograd.forward_ad as fwAD
 from perception_tpu_torch._tensor import const, consts
 from perception_tpu_torch.geometry import se3
 from perception_tpu_torch.ops.pnp import huber_weight
+
+Reduce = Callable[[List[torch.Tensor]], List[torch.Tensor]]
+
+
+def _one_process(tensors: List[torch.Tensor]) -> List[torch.Tensor]:
+    return tensors
 
 
 class BAProblem(NamedTuple):
@@ -219,7 +231,11 @@ def bundle_adjust(
     iterations: int = 10,
     damping: float = 1e-3,
     huber_px: float = 3.0,
+    reduce: Reduce = _one_process,
 ) -> BAResult:
+    """Levenberg-Marquardt over the window (module docstring); ``reduce``
+    sums the normal-equation blocks and the costs' terms over the
+    processes that share the observations."""
     M = problem.poses_wc.shape[0]
     L = problem.landmarks.shape[0]
     like = problem.landmarks
@@ -231,23 +247,23 @@ def bundle_adjust(
     # Iteration-invariant one-hot selectors for the segment sums.
     oh_pose = _onehot(obs_pose, M)
     oh_lm = _onehot(obs_lm, L)
-    n = torch.clamp(torch.sum(problem.obs_mask), min=1)
+    n = torch.clamp(reduce([torch.sum(problem.obs_mask)])[0], min=1)
 
     def cost(T, lms):
         r, _, _ = _proj_residuals(T, lms, obs_pose, obs_lm, problem.obs_uv, problem.obs_mask,
                                   fx, fy, cx, cy, problem.obs_z, problem.obs_zw)
-        return torch.sum(r * r) / n
+        return reduce([torch.sum(r * r)])[0] / n
 
     lms = problem.landmarks
     lam = const(damping, like)
     c = c0 = cost(T_cw, lms)
     for _ in range(iterations):
         # The accepted cost rides the loop: one residual evaluation per iteration.
-        Hpp, Hll, U, bp, bl = ba_blocks(
+        Hpp, Hll, U, bp, bl = reduce(list(ba_blocks(
             T_cw, lms, obs_pose, obs_lm, problem.obs_uv, problem.obs_mask,
             fx, fy, cx, cy, M, L, huber_px, problem.obs_z, problem.obs_zw,
             oh_pose=oh_pose, oh_lm=oh_lm,
-        )
+        )))
         dxi, dX, _ = ba_schur_solve(Hpp, Hll, U, bp, bl, lam, M, L)
         T_new = se3.se3_exp(dxi) @ T_cw
         lms_new = lms + dX
@@ -305,11 +321,14 @@ def optimize_pose_graph(
     graph: PoseGraph,
     iterations: int = 10,
     damping: float = 1e-4,
+    reduce: Reduce = _one_process,
 ) -> Tuple[torch.Tensor, torch.Tensor, torch.Tensor]:
     """Returns (optimized poses (N,4,4), initial_cost, final_cost).
 
     Gauss-Newton with per-edge Jacobian blocks assembled into the
-    (6N, 6N) normal matrix by one-hot matmuls, and a dense solve."""
+    (6N, 6N) normal matrix by one-hot matmuls, and a dense solve;
+    ``reduce`` sums the normal equations and the costs' terms over the
+    processes that share the edges."""
     N = graph.poses_wc.shape[0]
     dev = graph.poses_wc.device
     Tm_inv = se3.inverse(graph.edge_T)
@@ -321,12 +340,12 @@ def optimize_pose_graph(
     oh_row = torch.cat([oh_i, oh_i, oh_j, oh_j])  # (4E, N)
     oh_col = torch.cat([oh_i, oh_j, oh_i, oh_j])
     oh_g = torch.cat([oh_i, oh_j]).T              # (N, 2E)
-    n_edges = torch.clamp(torch.sum(graph.edge_mask), min=1)
+    n_edges = torch.clamp(reduce([torch.sum(graph.edge_mask)])[0], min=1)
     eye = damping * torch.eye(6 * N, device=dev)
 
     def cost(poses):
         r = se3.se3_log(Tm_inv @ se3.inverse(poses[ei]) @ poses[ej]) * sw[:, None]
-        return torch.sum(r * r) / n_edges
+        return reduce([torch.sum(r * r)])[0] / n_edges
 
     poses = graph.poses_wc
     c0 = c = cost(poses)
@@ -340,14 +359,12 @@ def optimize_pose_graph(
         # H[na, nb] = sum_e oh_row[e, na] oh_col[e, nb] block[e]
         scaled = (oh_col[:, :, None] * blocks[:, None, :]).reshape(blocks.shape[0], -1)  # (4E, N*36)
         Hb = (oh_row.T @ scaled).reshape(N, N, 6, 6)
-        H = Hb.permute(0, 2, 1, 3).reshape(6 * N, 6 * N) + eye
-
         gi = -torch.einsum("eai,ea->ei", Ji, r)
         gj = -torch.einsum("eai,ea->ei", Jj, r)
-        g = (oh_g @ torch.cat([gi, gj])).reshape(-1)
+        H, g = reduce([Hb.permute(0, 2, 1, 3).reshape(6 * N, 6 * N), (oh_g @ torch.cat([gi, gj])).reshape(-1)])
 
         # Gauge: freeze node 0.
-        delta = _solve_gauged(H, g).reshape(N, 6)
+        delta = _solve_gauged(H + eye, g).reshape(N, 6)
         new_poses = poses @ se3.se3_exp(delta)
         c_new = cost(new_poses)
         better = c_new < c

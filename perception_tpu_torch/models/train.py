@@ -24,18 +24,23 @@ Counterpart of ``perception_tpu/models/train.py`` in PyTorch's idiom:
   error plus the mean of the masked heatmap error, on channel-first maps.
 * ``make_train_step``: one update in place. It returns the loss as a
   tensor and reads nothing back from the device, so a step never waits
-  for the card.
+  for the card. With ``axis_name`` it is data-parallel over a process
+  group: the gradients and the loss are averaged across the group (one
+  flat all-reduce) between the backward pass and the update, as the JAX
+  step's ``pmean`` (no ``DistributedDataParallel``).
 * ``snapshot`` / ``restore``: the state through ``utils/checkpoint``.
 """
 
 from __future__ import annotations
 
 import dataclasses
-from typing import Callable, NamedTuple, Optional, Union
+from typing import Callable, NamedTuple, Union
 
 import numpy as np
 import torch
 from torch import nn
+
+from perception_tpu_torch.parallel.mesh import pmean
 
 KINDS = ("sgd", "momentum", "nesterov", "adam", "adamw", "rmsprop", "adagrad", "adadelta")
 
@@ -195,17 +200,19 @@ def pose_loss(net: nn.Module, batch: dict) -> torch.Tensor:
     return paf_err.mean() + hm_err.mean()
 
 
-def make_train_step(optimizer: Optimizer, loss_fn: Callable = pose_loss, axis_name: Optional[str] = None):
+def make_train_step(optimizer: Optimizer, loss_fn: Callable = pose_loss, axis_name=None):
     """One update: ``step(state, batch) -> (state, loss)``. ``loss_fn(net,
     batch)`` gives a scalar tensor; the learning rate is
     ``optimizer.lr(state.step)``. The net and its optimizer are updated in
     place; the returned state carries them with the count plus one.
 
-    ``axis_name`` (the JAX package's ``pmean`` of gradients over a mesh)
-    belongs to the multi-process port and raises here."""
-    if axis_name is not None:
-        raise NotImplementedError("make_train_step: data-parallel training (axis_name) is not ported yet")
-
+    With ``axis_name`` the step is data-parallel, the JAX step's ``pmean``:
+    each rank passes its own slice of the batch, and between the backward
+    pass and the update the gradients (one flat buffer) and the loss are
+    summed over the group and divided by its size, so every rank applies
+    the same update. Here ``axis_name`` is the process group itself (a
+    mesh's ``get_group("dp")``), where the JAX function takes the axis's
+    name; the JAX function also takes ``apply_fn`` first."""
     def step(state: TrainState, batch: dict):
         net, opt = state.params, state.opt_state
         lr = optimizer.lr(state.step)
@@ -214,6 +221,11 @@ def make_train_step(optimizer: Optimizer, loss_fn: Callable = pose_loss, axis_na
         opt.zero_grad(set_to_none=True)
         loss = loss_fn(net, batch)
         loss.backward()
+        if axis_name is not None:
+            params = [p for p in net.parameters() if p.grad is not None]
+            *grads, loss = pmean([p.grad for p in params] + [loss.detach()], axis_name)
+            for p, g in zip(params, grads):
+                p.grad.copy_(g)
         opt.step()
         return TrainState(net, opt, state.step + 1), loss.detach()
 

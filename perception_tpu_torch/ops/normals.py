@@ -16,6 +16,8 @@ import torch
 from perception_tpu_torch._tensor import const
 from perception_tpu_torch.ops import nn as _nn
 
+_EIGH_BATCH = 16384
+
 
 def _orient(normals: torch.Tensor, points: torch.Tensor, viewpoint) -> torch.Tensor:
     to_vp = const(viewpoint, points) - points
@@ -39,7 +41,10 @@ def normals_knn(
     mean = torch.sum(neigh * w[..., None], dim=-2, keepdim=True) / torch.clamp(count[..., None], min=1.0)
     centered = (neigh - mean) * w[..., None]
     cov = torch.einsum("nki,nkj->nij", centered, centered)
-    _, evecs = torch.linalg.eigh(cov)
+    # cuSOLVER's batched eigh refuses more than 16384 matrices a call (the
+    # H100 host, torch 2.11); each matrix is solved alone, so chunks give
+    # the same vectors.
+    evecs = torch.cat([torch.linalg.eigh(c)[1] for c in cov.split(_EIGH_BATCH)])
     normals = evecs[..., 0]
     normals = normals / torch.clamp(torch.linalg.vector_norm(normals, dim=-1, keepdim=True), min=1e-12)
     normals = _orient(normals, points, viewpoint)

@@ -53,3 +53,16 @@ def test_normals_point_to_the_viewpoint_on_a_random_cloud():
     np.testing.assert_allclose(n.numpy(), np.asarray(jn), atol=1e-6, rtol=0)
     to_vp = np.asarray(vp, np.float32) - p
     assert (np.sum(n.numpy() * to_vp, axis=-1) >= 0).all()
+
+
+def test_normals_knn_in_eigh_chunks_equal_one_call(monkeypatch):
+    """normals_knn splits its batched eigh into chunks (cuSOLVER refuses
+    more than 16384 matrices in one call): chunks, here of 300, give the
+    same normals as one call over the whole cloud."""
+    rng = np.random.default_rng(4)
+    pts = torch.from_numpy((rng.uniform(-0.5, 0.5, (1000, 3)) * [1.0, 1.0, 0.05]).astype(np.float32))
+    mask = torch.ones(1000, dtype=torch.bool)
+    whole = normals.normals_knn(pts, mask, k=8)
+    monkeypatch.setattr(normals, "_EIGH_BATCH", 300)
+    chunked = normals.normals_knn(pts, mask, k=8)
+    assert torch.equal(chunked[0], whole[0]) and torch.equal(chunked[1], whole[1])

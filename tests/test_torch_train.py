@@ -23,7 +23,8 @@ Same numpy inputs through both. Tolerances:
 - ``posenet_to_flax`` inverts ``posenet_from_flax`` exactly;
 - the JAX tests' behaviour repeated for the port: 30 Adam steps halve the
   tiny net's loss, ``snapshot``/``restore`` round-trip bit for bit, every
-  optimizer kind builds, ``axis_name`` raises;
+  optimizer kind builds, a data-parallel step over a one-rank gloo group
+  takes the plain step's update bit for bit;
 - ``torch.autograd.gradcheck`` in float64 of ``pose_loss`` through a tiny
   conv net (``test_gradcheck.py``'s), at its default tolerances;
 - ``roofline.cost_of`` of one convolution equals the hand count
@@ -58,6 +59,7 @@ from perception_tpu.models.pose import PoseNet as JPoseNet
 from perception_tpu_torch.convert import posenet_from_flax, posenet_to_flax, train_state_from_jax
 from perception_tpu_torch.models import train
 from perception_tpu_torch.models.pose import PoseNet
+from perception_tpu_torch.parallel.multihost import free_port
 from perception_tpu_torch.utils import roofline
 
 sys.path.insert(0, str(Path(__file__).resolve().parents[1] / "tools_torch"))
@@ -128,8 +130,24 @@ def test_optimizer_zoo_and_axis_name():
         assert isinstance(opt.init(net.parameters()), torch.optim.Optimizer)
     with pytest.raises(ValueError):
         train.make_optimizer(1e-3, "lbfgs")
-    with pytest.raises(NotImplementedError):
-        train.make_train_step(train.make_optimizer(), axis_name="batch")
+    # A data-parallel step over a one-rank group takes the plain step's
+    # update (fleets of more ranks run in tests/test_torch_train_dp.py).
+    torch.distributed.init_process_group("gloo", init_method=f"tcp://127.0.0.1:{free_port()}", world_size=1, rank=0)
+    try:
+        nets = [PoseNet(num_parts=3, num_limbs=2, num_stages=1, backbone_widths=(4, 4, 4)) for _ in range(2)]
+        nets[1].load_state_dict(nets[0].state_dict())
+        batch = {"image": torch.ones(1, 3, 16, 16), "paf": torch.zeros(1, 4, 2, 2),
+                 "heatmap": torch.zeros(1, 4, 2, 2)}
+        losses = []
+        for net, group in zip(nets, (None, torch.distributed.group.WORLD)):
+            opt = train.make_optimizer(1e-3, "momentum")
+            _, loss = train.make_train_step(opt, axis_name=group)(train.init_train_state(net, opt), batch)
+            losses.append(float(loss))
+    finally:
+        torch.distributed.destroy_process_group()
+    assert losses[0] == losses[1]
+    for a, b in zip(nets[0].parameters(), nets[1].parameters()):
+        assert torch.equal(a, b)
 
 
 @pytest.mark.parametrize("masked", [False, True])

@@ -4,7 +4,7 @@ Both sides start from the same weights: the JAX package's
 ``face_fixture.init_tiny`` at ``jax.random.key(--key)`` (0 is
 ``tools/train_face_fixture.py``'s own) or, with ``--init port``, the
 port's at ``torch.Generator().manual_seed(--key)`` (0 is
-``tools_torch/train_face_fixture.py``'s own), carried across by
+``tools_torch/train_face_fixture.py --numpy-rng``'s own), carried across by
 ``convert``. Each step takes one
 batch key, split from ``jax.random.key(1)`` as the JAX tool splits it:
 
@@ -20,7 +20,7 @@ batch key, split from ``jax.random.key(1)`` as the JAX tool splits it:
 Every ``--log-every`` steps it prints both losses and their relative
 difference. At the end each trained set of nets is evaluated by the
 port's ``face_fixture.evaluate`` on the same held-out scenes (the port
-tool's: ``default_rng(99)``, and ``default_rng(98)`` at 0.45 rad), and the
+tool's: JAX keys 99, and 98 at 0.45 rad, replayed by ``utils.jax_random``), and the
 JAX nets also by the JAX package's ``evaluate`` (the JAX tool's keys 99
 and 98). ``--ulp-baseline`` puts the JAX tool itself in the port's place,
 from the same weights moved up by one ulp: how far rounding alone carries
@@ -89,6 +89,7 @@ def run(args, log=print) -> dict:
     from perception_tpu.models.face import normalize_landmarks as jnorm
     from perception_tpu_torch.convert import au_head_to_flax, face_detector_to_flax, facenet_to_flax
     from perception_tpu_torch.models import face_data, face_fixture
+    from perception_tpu_torch.utils import jax_random
     from perception_tpu_torch.models.train import (
         cosine_decay_schedule,
         init_train_state,
@@ -191,8 +192,8 @@ def run(args, log=print) -> dict:
         nets.eval()
         jnets = port_nets(jax.tree.map(np.asarray, params))
         for name, n in (("other", nets), ("jax", jnets)):
-            err, sep, iou = face_fixture.evaluate(n, np.random.default_rng(99), device="cpu")
-            _, sep_rot, _ = face_fixture.evaluate(n, np.random.default_rng(98), rot_range=0.45, device="cpu")
+            err, sep, iou = face_fixture.evaluate(n, jax_random.key(99), device="cpu")
+            _, sep_rot, _ = face_fixture.evaluate(n, jax_random.key(98), rot_range=0.45, device="cpu")
             out[f"{name}_nets_port_evaluate"] = {"lm_err_px": err, "au02_sep": sep, "au02_sep_045": sep_rot,
                                                  "det_iou": iou}
         err, sep, iou = jff.evaluate(params, jax.random.key(99))

@@ -3,12 +3,16 @@ synthetic face scenes, with the port.
 
 Counterpart of ``tools/train_face_fixture.py``: the same flags and
 defaults and the same loss (``face_loss``), Adam on optax's cosine
-schedule (down to 5%). The nets start from ``face_fixture.init_tiny``
-(``torch.Generator`` seed 0), the batches come from
-``face_data.make_face_batch`` on the run's device (numpy draws, seed 1);
-each evaluation is ``face_fixture.evaluate`` on numpy's
-``default_rng(99)`` and, for the held-out tilt family, on
-``default_rng(98)`` at 0.45 rad. The best nets so far whose tilted AU02
+schedule (down to 5%), and the JAX tool's key stream, replayed in numpy
+by ``utils.jax_random``: the nets start from ``face_fixture.init_tiny(0)``
+(the JAX ``init_tiny(jax.random.key(0))``), each step's batch is
+``face_data.make_face_batch`` on the run's device from the draws of a key
+split off ``jax.random.key(1)`` as the JAX tool splits it, and each
+evaluation is ``face_fixture.evaluate`` on ``jax.random.key(99)`` and,
+for the held-out tilt family, on ``key(98)`` at 0.45 rad. With
+``--numpy-rng`` the nets come from ``torch.Generator`` seed 0 instead, the
+batches from numpy's ``default_rng(1)`` and the evaluations from
+``default_rng(99)`` and ``(98)``. The best nets so far whose tilted AU02
 separation is positive are written with ``face_fixture.save_fixture`` to
 ``--out``, by default ``build/fixtures/facenet_tiny.msgpack`` (the
 committed fixture is replaced only when ``--out`` names it). Exit 0 when
@@ -62,6 +66,9 @@ def parse_args(argv=None):
                     help="training head-rotation range (rad); covers the 0.45 rad held-out family")
     ap.add_argument("--pixel-noise", type=float, default=0.12,
                     help="max per-scene noise level (fraction of 255)")
+    ap.add_argument("--numpy-rng", action="store_true",
+                    help="init from torch.Generator seed 0 and draw batches and evaluations from numpy's "
+                         "default_rng(1), (99), (98), not from the JAX tool's keys 0, 1, 99, 98")
     ap.add_argument("--cpu", action="store_true")
     ap.add_argument("--out", default=str(DEFAULT_OUT))
     return ap.parse_args(argv)
@@ -73,7 +80,7 @@ def train(args, log=print) -> dict:
     import numpy as np
     import torch
 
-    from perception_tpu_torch.models.face_data import make_face_batch
+    from perception_tpu_torch.models.face_data import draw_face_batch, draw_face_batch_from_key, make_face_batch
     from perception_tpu_torch.models.face_fixture import evaluate, init_tiny, save_fixture
     from perception_tpu_torch.models.train import (
         cosine_decay_schedule,
@@ -81,28 +88,40 @@ def train(args, log=print) -> dict:
         make_optimizer,
         make_train_step,
     )
+    from perception_tpu_torch.utils import jax_random
 
     if not args.cpu and not torch.cuda.is_available():
         raise SystemExit("no CUDA card; pass --cpu to train on the CPU")
     device = torch.device("cpu" if args.cpu else "cuda")
     log(f"device: {torch.cuda.get_device_name(0) if device.type == 'cuda' else 'cpu'}")
-    nets = init_tiny(torch.Generator().manual_seed(0), device)
+    nets = init_tiny(torch.Generator().manual_seed(0) if args.numpy_rng else 0, device)
     log(f"params: {sum(p.numel() for p in nets.parameters()) / 1e3:.1f}k")
 
     optimizer = make_optimizer(cosine_decay_schedule(args.lr, args.steps, alpha=0.05), "adam")
     state = init_train_state(nets, optimizer)
     step_fn = make_train_step(optimizer, face_loss)
-    rng = np.random.default_rng(1)
+    if args.numpy_rng:
+        rng = np.random.default_rng(1)
+        held_out = lambda: (np.random.default_rng(99), np.random.default_rng(98))  # fresh each evaluation
+    else:
+        key = jax_random.key(1)
+        held_out = lambda: (jax_random.key(99), jax_random.key(98))
     best, evals = float("inf"), []
     t0 = time.time()
     for step in range(1, args.steps + 1):
-        batch = make_face_batch(rng, args.batch, rot_range=args.rot_range, pixel_noise=args.pixel_noise,
-                                device=device)
+        if args.numpy_rng:
+            draws = draw_face_batch(rng, args.batch, rot_range=args.rot_range, pixel_noise=args.pixel_noise)
+        else:
+            key, bk = jax_random.split(key)
+            draws = draw_face_batch_from_key(bk, args.batch, rot_range=args.rot_range, pixel_noise=args.pixel_noise)
+        batch = make_face_batch(None, args.batch, rot_range=args.rot_range, pixel_noise=args.pixel_noise,
+                                device=device, draws=draws)
         state, loss = step_fn(state, batch)
         if step % args.eval_every == 0 or step == args.steps:
             nets.eval()
-            err, sep, iou = evaluate(nets, np.random.default_rng(99), device=device)
-            _, sep_rot, _ = evaluate(nets, np.random.default_rng(98), rot_range=0.45, device=device)
+            held, tilted = held_out()
+            err, sep, iou = evaluate(nets, held, device=device)
+            _, sep_rot, _ = evaluate(nets, tilted, rot_range=0.45, device=device)
             nets.train()
             evals.append((step, float(loss), err, sep, sep_rot, iou))
             log(f"step {step}: loss={float(loss):.5f} lm_err={err:.2f}px au02_sep={sep:.2f} "
