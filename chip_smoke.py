@@ -156,6 +156,23 @@ set to 0 just before it and read just after:
   ms a call of each step at each rank count and the data-parallel step's
   share of the f32 peak. Ranks that share one card show the structure of
   the sharding, not a cluster's speed.
+- the examples (``run_examples``): every ``examples_torch`` example's
+  ``main()`` (and ``main_facade()``) on the card with its own asserts and
+  exactly its K1 launches (1, 1, 4 and 10 for 01, 02, 09 and 12, none
+  elsewhere; 07 and 13 spawn their gloo fleets on the card); 05, 06, 08,
+  10's viewer and 11 again on the CPU, the card held to them (05: the
+  same keyframes and edges, ATE within 5 mm; 06: losses within 1e-3
+  relative; 08: within 1e-4 and the display images equal; 10: the orbit
+  frames equal, and equal to the plain renderer; 11: gates equal, the rest
+  within 1e-3). Then the leaves at full width: ``Gui3D`` at 480x640 over
+  the whole backprojected 640x480 bench frame (each frame equal to the
+  numpy plain version, ms a frame against it), ``depth_to_vis`` and
+  ``cvt_color_for_display`` (32FC1 dynamic, 32SC1 labels) card against
+  CPU, imgcodec round trips of 640x480 rgb8 / 16UC1 / 32FC1 images
+  (big-endian and PNG), COCO results of the full-width ``PoseNet()``'s
+  people on run_pose's 8 frames written and read back equal,
+  ``tools_torch/make_tum_fixture.py`` against the committed fixture and
+  ``tools_torch/fixtures_robustness.py`` on the card against FIXTURES.md.
 
 Each kernel is timed at its path's shapes against its plain version, in
 turns (plain, kernel, kernel, plain): the kernel's eager wrapper call by
@@ -197,12 +214,13 @@ import torch
 FRAMES = 8
 K1_TIMED = ((1, 8192), (8, 8192), (1, 32768), (1, 24576))  # the path shapes (B, N) at K=1024
 K1_SURFACE = (1, 8192, 512)  # (B, N, K): estimate_surface_frame's three fits on the work cloud
+K1_EXAMPLES = ((1, 32768, 256), (1, 16384, 1024))  # examples 09 and 12: shapes no other path gives K1
 KERNEL_SHAPES = [  # (B, N, K, inputs): "random", "edges" (k1_edge_inputs) or "all masked"
     *((b, n, 1024, inputs) for b, n in K1_TIMED for inputs in ("random", "edges")),
     *((b, n, k, inputs) for b, n, k in ((1, 777, 100), (3, 777, 100), (1, 8192, 1023))
       for inputs in ("random", "edges")),
     (1, 8192, 1024, "all masked"),
-    *((*K1_SURFACE, inputs) for inputs in ("random", "edges")),
+    *((*shape, inputs) for shape in (K1_SURFACE, *K1_EXAMPLES) for inputs in ("random", "edges")),
 ]
 K1_MIN_WARPS_PER_SM = 8  # what K1's launch plan must give each path shape (K1_SURFACE exempt: check_kernel)
 K1_INSTRUCTIONS = 8      # a pair: 3 multiplies, 3 adds, the compare, the count (no FMA)
@@ -512,6 +530,11 @@ def check_kernel(device):
         print(f"K1 launch plan at B={b} N={n} K=1024 on {sms} SMs: {plan}")
         require(plan.warps_per_sm >= K1_MIN_WARPS_PER_SM,
                 f"K1 launches under {K1_MIN_WARPS_PER_SM} warps an SM at {(b, n)}")
+    for b, n, k in K1_EXAMPLES:
+        plan = launch_plan(b, n, k, sms)
+        print(f"K1 launch plan at B={b} N={n} K={k} on {sms} SMs (an example's): {plan}")
+        require(plan.warps_per_sm >= K1_MIN_WARPS_PER_SM,
+                f"K1 launches under {K1_MIN_WARPS_PER_SM} warps an SM at {(b, n, k)}")
     # The surface frame's shape is exempt: at K=512 there are 4 hypothesis
     # blocks, and one chunk a split (the plan's floor) gives 32 splits, so
     # 128 blocks on 132 SMs, 7.76 warps an SM. Raising it needs another
@@ -570,17 +593,18 @@ def time_kernel(device):
         times[(b, n)]["floor_ms"] = floor
         print(f"  K1 issue-rate floor at {clock / 1e6:.0f} MHz: {floor:.5f} ms, device share of floor "
               f"{floor / times[(b, n)]['device_ms']:.3f}")
-    b, n, k = K1_SURFACE
-    pts, mask, hyp = kernel_inputs(b, n, k, False, device, seed=1)
-    times[K1_SURFACE] = timed(f"K1 ransac_score (B={b}, N={n}, K={k}, surface frame)",
-                              lambda: ransac_score(pts, mask, hyp, TAU),
-                              lambda: ransac_score_reference(pts, mask, hyp, TAU),
-                              lambda: (9 * b * n * k, nbytes(pts, mask, hyp) + 4 * b * k),
-                              plain_iters=20)
-    floor = k1_floor_ms(b, n, k, sm_count(device.index), clock)
-    times[K1_SURFACE]["floor_ms"] = floor
-    print(f"  K1 issue-rate floor at {clock / 1e6:.0f} MHz: {floor:.5f} ms, device share of floor "
-          f"{floor / times[K1_SURFACE]['device_ms']:.3f}")
+    for shape, what in ((K1_SURFACE, "surface frame"), *((sh, "example") for sh in K1_EXAMPLES)):
+        b, n, k = shape
+        pts, mask, hyp = kernel_inputs(b, n, k, False, device, seed=1)
+        times[shape] = timed(f"K1 ransac_score (B={b}, N={n}, K={k}, {what})",
+                             lambda: ransac_score(pts, mask, hyp, TAU),
+                             lambda: ransac_score_reference(pts, mask, hyp, TAU),
+                             lambda: (9 * b * n * k, nbytes(pts, mask, hyp) + 4 * b * k),
+                             plain_iters=20)
+        floor = k1_floor_ms(b, n, k, sm_count(device.index), clock)
+        times[shape]["floor_ms"] = floor
+        print(f"  K1 issue-rate floor at {clock / 1e6:.0f} MHz: {floor:.5f} ms, device share of floor "
+              f"{floor / times[shape]['device_ms']:.3f}")
     return times
 
 
@@ -3297,6 +3321,301 @@ def run_multichip(train_flops):
     print(f"multichip phase: {time.perf_counter() - t_phase:.1f} s")
 
 
+
+EXAMPLE_K1 = {  # examples_torch stem -> its K1 launches in main() and their (B, N, K); the rest launch none
+    "01_cuboid_pose_from_depth": (1, (1, 8192, 1024)),          # one cuboid RANSAC
+    "02_multi_object_service": (1, (1, 32768, 1024)),           # detect_object's plane removal
+    "09_cluttered_scene_with_gt_protocol": (4, (1, 32768, 256)),  # one detect_object a class, 256 hypotheses
+    "12_multi_object_tracking": (10, (1, 16384, 1024)),         # one tracker front end a frame
+}
+EXAMPLES_CPU = ("05", "06", "08", "10", "11")  # held against the CPU: no draw inside an algorithm decides them
+EX_ATE_TOL = 5e-3        # m: example 05's ATE, card against CPU (its loop closures' RANSAC draws differ)
+EX_LOSS_RTOL = 1e-3      # example 06's five losses, card against CPU (cuDNN's convolutions sum in another order)
+EX_GEOM_TOL = 1e-4       # px and m: example 08's round trips and stereo point, card against CPU
+EX_FACE_TOL = 1e-3       # px (landmarks, boxes) and m / rotation entries (poses) and AU02: example 11
+VIEWER_HW = (480, 640)   # Gui3D over the whole backprojected 640x480 bench frame
+VIEWER_FRAMES = 3        # orbit frames, each held to the plain version
+COCO_SCENES = 8          # run_pose's full-width batch: BODY_25 PoseNet() at 368x368, seeded weights
+ROBUST_TOL = 0.05        # FIXTURES.md's numbers (PCK, recall, IoU, px, AU separation), card against the committed
+
+
+def example_outputs(stem, device):
+    """``main(device)`` of an example, and its ``main_facade(device)``
+    where it has one, merged: the example's headline numbers."""
+    from examples_torch._common import load
+
+    mod = load(stem)
+    out = dict(mod.main(device))
+    if hasattr(mod, "main_facade"):
+        out.update(mod.main_facade(device))
+    return out
+
+
+def max_diff(a, b):
+    return float(np.max(np.abs(np.asarray(a, np.float64) - np.asarray(b, np.float64))))
+
+
+def compare_example(stem, card, cpu):
+    """The card's headline numbers against the CPU's for the examples of
+    EXAMPLES_CPU, each within its stated tolerance."""
+    if stem.startswith("05"):
+        d = abs(card["ate_rmse"] - cpu["ate_rmse"])
+        print(f"  05 card vs cpu: keyframes {card['keyframes']} / {cpu['keyframes']}, edges {card['edges']} / "
+              f"{cpu['edges']}, ATE {card['ate_rmse']:.5f} / {cpu['ate_rmse']:.5f} m (diff {d:.2e}), "
+              f"poses max diff {max_diff(card['poses'], cpu['poses']):.2e}")
+        require(card["keyframes"] == cpu["keyframes"] and card["edges"] == cpu["edges"] and d <= EX_ATE_TOL,
+                "example 05: the card's SLAM differs from the CPU's")
+    elif stem.startswith("06"):
+        rel = max(abs(a - b) / abs(b) for a, b in zip(card["losses"], cpu["losses"]))
+        print(f"  06 card vs cpu: losses {[round(x, 6) for x in card['losses']]} / "
+              f"{[round(x, 6) for x in cpu['losses']]}, max relative diff {rel:.2e}")
+        require(rel <= EX_LOSS_RTOL and card["bit_stable"], "example 06: the card's loss curve differs from the CPU's")
+    elif stem.startswith("08"):
+        geo = max(abs(card["ray_err"] - cpu["ray_err"]), abs(card["rect_err"] - cpu["rect_err"]),
+                  max_diff(card["xyz"], cpu["xyz"]))
+        same = (np.array_equal(card["depth_display"], cpu["depth_display"])
+                and np.array_equal(card["label_display"], cpu["label_display"]))
+        print(f"  08 card vs cpu: round trips and stereo point within {geo:.2e}; display images equal {same}")
+        require(geo <= EX_GEOM_TOL and same, "example 08: the card differs from the CPU")
+    elif stem.startswith("10"):
+        # The clouds are backprojected on each device; each device's frames
+        # are held to the plain renderer on its own cloud, and to each other.
+        from perception_tpu_torch.io.gui import Gui3D
+        from perception_tpu_torch.models.viz import render_points_3d_reference
+
+        orbit = Gui3D(orbit_step_deg=30.0)  # the example's viewer: its eyes, frame by frame
+        same = []
+        for f in card["orbit_frames"]:
+            same.append(np.array_equal(f, render_points_3d_reference(card["cloud"], size=(120, 160), eye=orbit.eye())))
+            orbit.orbit += orbit.orbit_step
+        px = sum(int((a != b).any(-1).sum()) for a, b in zip(card["orbit_frames"], cpu["orbit_frames"]))
+        print(f"  10 viewer: the card's 4 orbit frames equal the plain version on its cloud {same}; "
+              f"pixels differing from the CPU run's frames: {px}; cloud max diff "
+              f"{max_diff(card['cloud'], cpu['cloud']):.2e} m; sink {card['sink']}, {card['bytes']} bytes")
+        require(all(same) and px == 0, "example 10: the card's viewer frames differ")
+    elif stem.startswith("11"):
+        worst = 0.0
+        for a, b in zip(card["faces"], cpu["faces"]):
+            require(a["gate"] == b["gate"], "example 11: AU02 gates differ")
+            worst = max(worst, max_diff(a["landmarks"], b["landmarks"]), max_diff(a["box"], b["box"]),
+                        max_diff(a["pose"], b["pose"]), abs(a["au02"] - b["au02"]))
+        print(f"  11 card vs cpu: gates equal, landmarks, boxes, poses and AU02 within {worst:.2e}")
+        require(worst <= EX_FACE_TOL, "example 11: the card's face chain differs from the CPU's")
+
+
+def run_examples(device):
+    """Every ``examples_torch`` example on the card, then the viewer, codec
+    and saver leaves at full width. Returns the examples' K1 launches by
+    (B, N, K)."""
+    from examples_torch._common import ROOT
+
+    t_phase = time.perf_counter()
+    cpu = torch.device("cpu")
+    host = {}
+    for name in ("cv2", "matplotlib", "PySpin"):  # what the examples' optional paths find on this host
+        try:
+            host[name] = getattr(__import__(name), "__version__", "present")
+        except ImportError:
+            host[name] = "absent"
+    print(f"examples' host: {host}")
+    k1 = {}
+    for path in sorted((ROOT / "examples_torch").glob("[0-9][0-9]_*.py")):
+        stem = path.stem
+        want, shape = EXAMPLE_K1.get(stem, (0, None))
+        t0 = time.perf_counter()
+        reset_launches()
+        card = example_outputs(stem, device)
+        torch.cuda.synchronize()
+        launches = read_launches()
+        print(f"example {stem} on the card: {time.perf_counter() - t0:.1f} s, launches {launches}")
+        require(launches == {"ransac_score": want, "icp_gn": 0, "voxelhash_query": 0},
+                f"example {stem}: expected {want} K1 launches and no other kernel")
+        if shape is not None:
+            k1[shape] = k1.get(shape, 0) + want
+        if stem[:2] in EXAMPLES_CPU:
+            t0 = time.perf_counter()
+            compare_example(stem, card, example_outputs(stem, cpu))
+            print(f"  (the CPU run: {time.perf_counter() - t0:.1f} s)")
+    print(f"examples: {time.perf_counter() - t_phase:.1f} s")
+    run_leaves(device)
+    print(f"examples phase: {time.perf_counter() - t_phase:.1f} s")
+    return k1
+
+
+def run_leaves(device):
+    """The viewer, display, codec and saver leaves at full width."""
+    import tempfile
+    from pathlib import Path
+
+    from perception_tpu_torch.bench.scene import render_depth_tabletop
+    from perception_tpu_torch.geometry.camera import PinholeCamera
+    from perception_tpu_torch.io import imgcodec, savers
+    from perception_tpu_torch.io.gui import FrameDisplayer, Gui3D
+    from perception_tpu_torch.models import pose
+    from perception_tpu_torch.models.viz import depth_to_vis, render_points_3d_reference
+
+    t_phase = time.perf_counter()
+    cpu = torch.device("cpu")
+    cam = PinholeCamera.d435_depth()
+    depth = render_depth_tabletop(cam, seed=0)
+
+    # 1. Gui3D over the whole backprojected frame, each frame held to the plain version.
+    pts, mask = cam.backproject_depth(torch.as_tensor(depth, device=device))
+    cloud = pts[mask]
+    host_cloud = cloud.cpu().numpy()
+    g3 = Gui3D(hw=VIEWER_HW, orbit_step_deg=30.0, displayer=FrameDisplayer(sink=lambda f: None))
+    plain_s = []
+    for i in range(VIEWER_FRAMES):
+        eye = g3.eye()
+        img = g3.update(cloud).cpu().numpy()
+        t0 = time.perf_counter()
+        want = render_points_3d_reference(host_cloud, size=VIEWER_HW, eye=eye)
+        plain_s.append(time.perf_counter() - t0)
+        diff = int((img != want).any(-1).sum())
+        print(f"Gui3D {VIEWER_HW} frame {i} over {len(host_cloud)} points: {diff} pixels differ from the plain "
+              f"version, {int((want != 16).any(-1).sum())} pixels painted")
+        require(diff == 0, "Gui3D: the card's frame differs from the plain version's")
+    card_ms = event_ms(lambda: g3.update(cloud))
+    plain_ms = statistics.median(plain_s) * 1e3
+    print(f"Gui3D {VIEWER_HW}, {len(host_cloud)} points: card {fmt_ms(card_ms)} a frame (render + the frame to the "
+          f"host, CUDA events); plain version (numpy loop) {plain_ms:.1f} ms a frame (host clock, median of "
+          f"{VIEWER_FRAMES}); {plain_ms / card_ms[0]:.1f}x")
+
+    # 2. Display conversions on 640x480 frames, card against CPU.
+    labels = np.random.default_rng(5).integers(-1, 300, (480, 640)).astype(np.int32)
+    d_nan = depth.copy()
+    d_nan[::7, ::11] = np.nan
+    checks = {
+        "depth_to_vis": lambda d: depth_to_vis(torch.as_tensor(d_nan, device=d), max_depth=1.2),
+        "cvt_color_for_display 32FC1 dynamic": lambda d: imgcodec.cvt_color_for_display(
+            torch.as_tensor(d_nan, device=d), "32FC1", "bgr8", do_dynamic_scaling=True),
+        "cvt_color_for_display 32SC1 labels": lambda d: imgcodec.cvt_color_for_display(
+            torch.as_tensor(labels, device=d), "32SC1", "rgb8"),
+    }
+    for name, fn in checks.items():
+        same = torch.equal(fn(device).cpu(), fn(cpu))
+        print(f"{name} 480x640: card equals CPU {same}; card {fmt_ms(event_ms(lambda: fn(device)))} a frame")
+        require(same, f"{name}: the card differs from the CPU")
+    numpy_same = np.array_equal(depth_to_vis(d_nan, max_depth=1.2), depth_to_vis(torch.as_tensor(d_nan), 1.2).numpy())
+    require(numpy_same, "depth_to_vis: numpy and tensor differ")
+
+    # 3. imgcodec round trips at 640x480, little- and big-endian, and PNG.
+    rng = np.random.default_rng(6)
+    images = {"rgb8": rng.integers(0, 256, (480, 640, 3), dtype=np.uint8),
+              "16UC1": rng.integers(0, 65536, (480, 640), dtype=np.uint16),
+              "32FC1": rng.random((480, 640), dtype=np.float32)}
+    for enc, arr in images.items():
+        msg = imgcodec.array_to_image(torch.as_tensor(arr, device=device), enc)
+        big = dict(msg, is_bigendian=True, data=arr.astype(arr.dtype.newbyteorder(">")).tobytes())
+        ok = np.array_equal(imgcodec.image_to_array(msg), arr) and np.array_equal(imgcodec.image_to_array(big), arr)
+        if enc != "32FC1":
+            ok = ok and np.array_equal(imgcodec.compressed_to_array(imgcodec.array_to_compressed(arr, "png")), arr)
+        print(f"imgcodec {enc} 480x640: raw little/big-endian{'' if enc == '32FC1' else ' and PNG'} round trips equal {ok}")
+        require(ok, f"imgcodec {enc}: round trip differs")
+
+    # 4. COCO results of the full-width PoseNet's people (run_pose's setting).
+    topology = "BODY_25"
+    parts, pairs = pose.lookup_topology(topology)
+    wide = pose.init_posenet(torch.Generator().manual_seed(0), topology, device=device)
+    frames = torch.from_numpy(np.random.default_rng(1).random((COCO_SCENES,) + WIDE_HW + (3,), dtype=np.float32))
+    with torch.no_grad():
+        paf, hm = wide(frames.to(device).permute(0, 3, 1, 2).contiguous())
+    people = []
+    for b in range(COCO_SCENES):  # each frame's maps scaled to a unit maximum, as run_pose decodes them
+        mp = pose._merge([paf[b]], (WIDE_HW[0] // 8, WIDE_HW[1] // 8))
+        mh = pose._merge([hm[b, :len(parts)]], WIDE_HW)
+        people.append(pose.decode_people(mp / mp.abs().amax(), mh / mh.amax(), pairs, num_parts=len(parts),
+                                         paf_stride=8.0))
+    results = savers.coco_keypoint_results(range(COCO_SCENES), [p.keypoints for p in people],
+                                           [p.mask for p in people], [p.score for p in people])
+    with tempfile.TemporaryDirectory() as d:
+        path = Path(d) / "coco.json"
+        savers.save_coco_json(path, results)
+        back = savers.load_coco_json(path)
+        savers.save_heatmaps(Path(d) / "hm.npz", hm)
+        hm_same = np.array_equal(savers.load_heatmaps(Path(d) / "hm.npz"), hm.cpu().numpy())
+    per_image = savers.coco_results_to_keypoints(back)
+    ok = back == results and hm_same
+    for b, p in enumerate(people):
+        m = p.mask.cpu().numpy()
+        kp = p.keypoints.cpu().numpy()[m][:, savers.coco_order_indexes(len(parts))]
+        if m.any():
+            got = per_image[b]
+            ok = ok and np.array_equal(got[0], kp[..., :2]) and np.array_equal(got[1], kp[..., 2] > 0)
+    print(f"COCO results of {len(results)} people over {COCO_SCENES} full-width {topology} frames: written, read "
+          f"back and inverted equal {ok}; heatmaps {tuple(hm.shape)} npz equal {hm_same}")
+    require(ok and len(results) > 0, "COCO results or heatmaps differ after the round trip")
+
+    # 5. The tools: the TUM fixture under build/ against the committed one,
+    # the held-out tables on the card against the committed FIXTURES.md.
+    run_tum_fixture_tool()
+    run_robustness_tool()
+    print(f"leaves: {time.perf_counter() - t_phase:.1f} s")
+
+
+def fixtures_rows(path):
+    """FIXTURES.md's table rows: (family, numbers) in file order."""
+    rows = []
+    for line in path.read_text().splitlines():
+        cells = [c.strip() for c in line.strip("|").split("|")]
+        if line.startswith("| ") and cells[0] != "family":
+            rows.append((cells[0], [float(c) for c in cells[1:]]))
+    return rows
+
+
+def run_robustness_tool():
+    """``tools_torch/fixtures_robustness.py`` on the card (the JAX tool's
+    keys), its tables held to the committed FIXTURES.md (the JAX tool's
+    run; the CPU run of the port's tool equals it row for row,
+    tests/test_torch_fixtures_robustness.py): the same families, each
+    number within ROBUST_TOL of the committed one (the card's convolutions
+    round otherwise, and a scene's keypoint may cross a threshold)."""
+    from pathlib import Path
+
+    root = Path(__file__).resolve().parent
+    out = root / "build" / "FIXTURES.md"
+    t0 = time.perf_counter()
+    subprocess.run([sys.executable, str(root / "tools_torch" / "fixtures_robustness.py"), "--out", str(out)],
+                   check=True, timeout=600, capture_output=True)
+    got, want = fixtures_rows(out), fixtures_rows(root / "FIXTURES.md")
+    worst = max((abs(a - b) for (_, x), (_, y) in zip(got, want) for a, b in zip(x, y)), default=float("inf"))
+    same = sum(x == y for (_, x), (_, y) in zip(got, want))
+    print(f"fixtures_robustness on the card: {len(got)} rows in {time.perf_counter() - t0:.1f} s, {same} equal to "
+          f"the committed FIXTURES.md at its two decimals, the rest within {worst:.3f}")
+    require([n for n, _ in got] == [n for n, _ in want] and worst <= ROBUST_TOL,
+            "fixtures_robustness: the card's tables differ from FIXTURES.md")
+
+
+def run_tum_fixture_tool():
+    """``tools_torch/make_tum_fixture.py`` writes the 30-frame fixture under
+    build/; it is held to the committed ``tests/fixtures/tum_mini``: the
+    frame lists and calibration equal, the ground truth within 5e-6 (its
+    sixth decimals differ by up to 3), depth within one count (0.2 mm).
+    The committed fixture predates the current scene code: the JAX tool's
+    output today differs from it the same way, and its colour frames by up
+    to 169 grey levels (another room texture), which is printed, not
+    held; the port's tool equals the JAX tool's output bit for bit
+    (tests/test_torch_examples_geometry.py)."""
+    from pathlib import Path
+
+    from perception_tpu_torch.io.png import read_png
+
+    root = Path(__file__).resolve().parent
+    out, ref = root / "build" / "tum_mini", root / "tests" / "fixtures" / "tum_mini"
+    subprocess.run([sys.executable, str(root / "tools_torch" / "make_tum_fixture.py"), "--out", str(out)],
+                   check=True, timeout=300)
+    text = all((out / f).read_text() == (ref / f).read_text() for f in ("rgb.txt", "depth.txt", "calibration.txt"))
+    gt = [np.loadtxt(d / "groundtruth.txt") for d in (out, ref)]
+    gt_diff = max_diff(*gt) if gt[0].shape == gt[1].shape else float("inf")
+    diffs = {kind: max(max_diff(read_png(a), read_png(b)) for a, b in
+                       zip(sorted((out / kind).glob("*.png")), sorted((ref / kind).glob("*.png"))))
+             for kind in ("depth", "rgb")}
+    print(f"make_tum_fixture: lists and calibration equal to the committed fixture {text}; ground truth within "
+          f"{gt_diff:.1e}; depth within {diffs['depth']:.0f} counts; colour frames differ by up to "
+          f"{diffs['rgb']:.0f} (not held)")
+    require(text and gt_diff <= 5e-6 and diffs["depth"] <= 1, "make_tum_fixture: differs from the committed fixture")
+
+
 def cli_call(argv):
     """``perception_tpu_torch.cli.main(argv)`` with the kernels' launch
     counts set to 0 just before and read just after, its stdout captured:
@@ -3620,6 +3939,7 @@ def main() -> int:
     run_3d_chain(device)
     train_flops = run_training(device)
     run_multichip(train_flops)
+    example_k1 = run_examples(device)
 
     k1_times = time_kernel(device)
     k2_times = time_k2(device)
@@ -3643,14 +3963,20 @@ def main() -> int:
             **json_times(k1_times[bn]),
             "floor_ms": k1_times[bn]["floor_ms"],
         } for shape, launches, bn in (
-            ("B=1 N=8192 K=1024 (cuboid, one frame a call; with cli cuboid's and the leaf nodes' ground planes)",
-             cuboid_b1_launches + cli_launches["cuboid"] + leaf_plane_launches, (1, 8192)),
+            ("B=1 N=8192 K=1024 (cuboid, one frame a call; with cli cuboid's, the leaf nodes' ground planes "
+             "and example 01's)",
+             cuboid_b1_launches + cli_launches["cuboid"] + leaf_plane_launches + example_k1[(1, 8192, 1024)],
+             (1, 8192)),
             ("B=8 N=8192 K=1024 (cuboid batches: default, cc, p2p; with pcl_parity's one B=2 call)",
              cuboid_b8_launches + mode_launches, (8, 8192)),
-            ("B=1 N=32768 K=1024 (detect_object; with cli objects')", obj_launches + cli_launches["objects"],
-             (1, 32768)),
+            ("B=1 N=32768 K=1024 (detect_object; with cli objects' and example 02's)",
+             obj_launches + cli_launches["objects"] + example_k1[(1, 32768, 1024)], (1, 32768)),
             ("B=1 N=24576 K=1024 (tracker)", track_launches, (1, 24576)),
             ("B=1 N=8192 K=512 (surface_frame)", leaf_surface_launches, K1_SURFACE),
+            ("B=1 N=32768 K=256 (example 09: detect_object at 256 hypotheses)", example_k1[(1, 32768, 256)],
+             (1, 32768, 256)),
+            ("B=1 N=16384 K=1024 (example 12: the tracker at work_capacity 16384)", example_k1[(1, 16384, 1024)],
+             (1, 16384, 1024)),
         )),
         {
             "name": "icp_gn",

@@ -22,7 +22,10 @@ stream in numpy in ``utils/jax_random.py``), checkpoints
 (``utils/roofline.py``), the multi-device layer on ``torch.distributed``
 (``parallel/``: the rank mesh, distributed ICP, BA and pose graphs,
 map-sharded odometry, data-parallel training, the multi-process runtime
-and its dry run), with what they run, including the three kernels
+and its dry run), the display, codec and device leaves (``io/imgcodec.py``,
+``io/colors.py``, ``models/viz.py``'s depth colouring and 3-D viewer on
+the card, ``io/gui.py``'s ``Gui3D``, the COCO and heatmap savers, the
+camera readers), with what they run, including the three kernels
 under ``csrc/``: fused RANSAC scoring, the fused Gauss-Newton ICP system
-and the voxel-hash query.
+and the voxel-hash query. The repository's ``examples_torch/`` tour it.
 """

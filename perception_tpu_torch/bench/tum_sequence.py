@@ -32,11 +32,12 @@ def _stamp(i: int) -> float:
     return 1000.0 + i / 30.0  # 30 Hz timestamps
 
 
-def write_tum_sequence(out, camera, trajectory, render=None, threads: int = 8) -> Path:
+def write_tum_sequence(out, camera, trajectory, render=None, threads: int = 8, header: str = HEADER) -> Path:
     """Write frame i of ``trajectory`` (world <- camera poses) as seen by
     ``camera``; ``render(i)`` gives its (gray, depth) float32 images
     (default: ``render_textured_room`` with seed i). Frames are rendered
-    and encoded on ``threads`` threads. Returns the directory."""
+    and encoded on ``threads`` threads; ``header`` heads the three lists.
+    Returns the directory."""
     out = Path(out)
     (out / "rgb").mkdir(parents=True, exist_ok=True)
     (out / "depth").mkdir(parents=True, exist_ok=True)
@@ -55,21 +56,22 @@ def write_tum_sequence(out, camera, trajectory, render=None, threads: int = 8) -
 
     times = [_stamp(i) for i in range(len(trajectory))]
     listing = "# timestamp filename\n"
-    (out / "depth.txt").write_text(HEADER + listing + "".join(f"{t:.6f} depth/{t:.6f}.png\n" for t in times))
-    (out / "rgb.txt").write_text(HEADER + listing + "".join(f"{t:.6f} rgb/{t:.6f}.png\n" for t in times))
+    (out / "depth.txt").write_text(header + listing + "".join(f"{t:.6f} depth/{t:.6f}.png\n" for t in times))
+    (out / "rgb.txt").write_text(header + listing + "".join(f"{t:.6f} rgb/{t:.6f}.png\n" for t in times))
     (out / "groundtruth.txt").write_text(
-        HEADER + "# timestamp tx ty tz qx qy qz qw\n" + trajectory_text(times, trajectory))
+        header + "# timestamp tx ty tz qx qy qz qw\n" + trajectory_text(times, trajectory))
     (out / "calibration.txt").write_text(
         f"# fx fy cx cy width height\n{camera.fx} {camera.fy} {camera.cx} {camera.cy} "
         f"{camera.width} {camera.height}\n")
     return out
 
 
-def make_sequence(out, frames: int = 30, width: int = 160, height: int = 120, threads: int = 8) -> Path:
+def make_sequence(out, frames: int = 30, width: int = 160, height: int = 120, threads: int = 8,
+                  header: str = HEADER) -> Path:
     """The sweep of ``frames`` poses (``sweep_trajectory(n=frames)``) at
     the SLAM bench's field of view, rendered and written."""
     return write_tum_sequence(out, bench_camera(width, height), sweep_trajectory(n=frames),
-                              threads=threads)
+                              threads=threads, header=header)
 
 
 def main(argv=None) -> int:

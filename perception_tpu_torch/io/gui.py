@@ -1,10 +1,11 @@
 """GUI layer: frame display, info overlay and the interactive loop.
 
-Counterpart of ``perception_tpu/io/gui.py`` without the 3-D viewer:
-``GuiInfoAdder`` (an FPS / frame / people overlay, numpy when ``cv2`` is
-missing), ``FrameDisplayer`` (a ``cv2`` window when a display exists,
-else a frame sink) and ``Gui`` (show, poll keys: space pauses, 'q' or
-Esc quits).
+Counterpart of ``perception_tpu/io/gui.py``: ``GuiInfoAdder`` (an FPS /
+frame / people overlay, numpy when ``cv2`` is missing), ``FrameDisplayer``
+(a ``cv2`` window when a display exists, else a frame sink), ``Gui``
+(show, poll keys: space pauses, 'q' or Esc quits) and ``Gui3D``, the
+orbiting 3-D viewer over ``models/viz.render_points_3d``, which renders a
+tensor cloud on its own device.
 """
 
 from __future__ import annotations
@@ -14,6 +15,7 @@ import time
 from typing import Callable, Optional
 
 import numpy as np
+import torch
 
 
 def display_available() -> bool:
@@ -145,3 +147,39 @@ class Gui:
 
     def close(self) -> None:
         self.displayer.close()
+
+
+class Gui3D:
+    """Animated 3-D cloud viewer: renders via the offscreen z-buffer
+    viewer (models/viz.render_points_3d) into the display path, orbiting
+    the scene per frame (the reference's OpenGL Gui3D capability on the
+    same FrameDisplayer). A tensor cloud renders on its device; the
+    displayer gets the frame as a numpy image."""
+
+    def __init__(self, hw=(480, 640), orbit_step_deg: float = 2.0,
+                 displayer: Optional[FrameDisplayer] = None):
+        self.hw = hw
+        self.orbit = 0.0
+        self.orbit_step = orbit_step_deg
+        self.displayer = displayer or FrameDisplayer(title="perception_tpu_torch-3d")
+
+    def eye(self, target=(0.0, 0.0, 0.8), radius: float = 0.9):
+        """The camera position of the next frame."""
+        a = np.radians(self.orbit)
+        return (
+            target[0] + radius * np.sin(a),
+            target[1] - 0.4,
+            target[2] - radius * np.cos(a),
+        )
+
+    def update(self, points, colors=None, target=(0.0, 0.0, 0.8), radius: float = 0.9):
+        """Render, advance the orbit, display; returns the frame (a tensor
+        on the cloud's device for a tensor cloud, else numpy)."""
+        from perception_tpu_torch.models.viz import render_points_3d
+
+        img = render_points_3d(
+            points, colors=colors, size=self.hw, eye=self.eye(target, radius), target=target,
+        )
+        self.orbit = (self.orbit + self.orbit_step) % 360.0
+        self.displayer.display(img.cpu().numpy() if isinstance(img, torch.Tensor) else img)
+        return img

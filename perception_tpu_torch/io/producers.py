@@ -1,10 +1,12 @@
-"""Frame producers: only what ``wrapper.Perception`` uses.
+"""Frame producers: video, webcam, IP camera, FLIR rig, image directory.
 
-Counterpart of part of ``perception_tpu/io/producers.py``: the video
-file reader (``cv2``, imported on use), the sorted image-directory
-reader (PNG through the port's own codec, any other file through cv2,
-read ahead by the native prefetcher) and ``paced``, the fps-keeping
-wrapper. Each yields (timestamp, frame).
+Counterpart of ``perception_tpu/io/producers.py``: the video file, webcam
+and IP-camera readers (``cv2``, imported on use), the FLIR / Point Grey
+rig reader (the Spinnaker SDK's ``PySpin``, imported on use), the sorted
+image-directory reader (PNG through the port's own codec, any other file
+through cv2, read ahead by the native prefetcher) and ``paced``, the
+fps-keeping wrapper. Each yields (timestamp, frame) with RGB uint8
+frames; importing this module needs neither cv2 nor PySpin.
 """
 
 from __future__ import annotations
@@ -47,6 +49,99 @@ class VideoReader:
 
     def close(self) -> None:
         self.cap.release()
+
+
+class WebcamReader(VideoReader):
+    """Live camera (WebcamReader equivalent; index instead of path)."""
+
+    def __init__(self, index: int = 0, width: int = 640, height: int = 480):
+        import cv2
+
+        self.cap = cv2.VideoCapture(index)
+        if not self.cap.isOpened():
+            raise RuntimeError(f"cannot open camera {index}")
+        self.cap.set(cv2.CAP_PROP_FRAME_WIDTH, width)
+        self.cap.set(cv2.CAP_PROP_FRAME_HEIGHT, height)
+        self.fps = self.cap.get(cv2.CAP_PROP_FPS) or 30.0
+        self.rotation = 0
+
+    def frames(self) -> Iterator[Tuple[float, np.ndarray]]:
+        while True:
+            ok, bgr = self.cap.read()
+            if not ok:
+                break
+            yield time.time(), np.ascontiguousarray(bgr[..., ::-1])
+
+
+class IpCameraReader(VideoReader):
+    """RTSP/HTTP stream reader (IpCameraReader equivalent,
+    ``producer/ipCameraReader.cpp``). cv2 speaks both protocols; frames
+    are timestamped with wall clock like the webcam path."""
+
+    def __init__(self, url: str, rotation: int = 0):
+        import cv2
+
+        self.cap = cv2.VideoCapture(url)
+        if not self.cap.isOpened():
+            raise ConnectionError(f"cannot open stream {url}")
+        self.fps = self.cap.get(cv2.CAP_PROP_FPS) or 30.0
+        self.rotation = rotation
+
+    def frames(self) -> Iterator[Tuple[float, np.ndarray]]:
+        while True:
+            ok, bgr = self.cap.read()
+            if not ok:
+                break
+            rgb = bgr[..., ::-1]
+            if self.rotation:
+                rgb = np.rot90(rgb, self.rotation // 90)
+            yield time.time(), np.ascontiguousarray(rgb)
+
+
+class FlirReader:
+    """Point Grey / FLIR stereo rig capture (FlirReader +
+    SpinnakerWrapper equivalent, ``producer/spinnakerWrapper.cpp``).
+
+    The Spinnaker SDK ships as the vendor package ``PySpin``; without it
+    construction raises a RuntimeError naming it (the reference likewise
+    compiles the wrapper out unless ``WITH_FLIR_CAMERA`` is set). With
+    PySpin, frames from all cameras on the bus come back together
+    (hardware trigger assumed configured)."""
+
+    def __init__(self, camera_params=None, undistort: bool = True):
+        try:
+            import PySpin  # type: ignore
+        except ImportError as e:
+            raise RuntimeError(
+                "FlirReader requires the Spinnaker SDK (PySpin); "
+                "not available in this environment"
+            ) from e
+        self._system = PySpin.System.GetInstance()
+        self._cams = self._system.GetCameras()
+        if self._cams.GetSize() == 0:
+            raise RuntimeError("no FLIR cameras on the bus")
+        for cam in self._cams:
+            cam.Init()
+            cam.BeginAcquisition()
+        self.camera_params = camera_params
+        self.undistort = undistort
+
+    def frames(self) -> Iterator[Tuple[float, list]]:
+        while True:
+            views = []
+            for cam in self._cams:
+                img = cam.GetNextImage()
+                arr = np.asarray(img.GetNDArray())
+                img.Release()
+                views.append(arr)
+            yield time.time(), views
+
+    def close(self) -> None:
+        for cam in self._cams:
+            cam.EndAcquisition()
+            cam.DeInit()
+        self._cams.Clear()
+        self._system.ReleaseInstance()
 
 
 def decode_frame(raw: bytes, path) -> np.ndarray | None:

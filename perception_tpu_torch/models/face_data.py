@@ -207,6 +207,19 @@ def sample_face_at(rng: np.random.Generator, hw: Tuple[int, int], fx: float, fy:
     return scene_from_pose(rot, txy, z, au02, hw, fx, fy)
 
 
+def sample_face_at_from_key(key: np.ndarray, hw: Tuple[int, int], fx: float, fy: float,
+                            txy: Tuple[float, float], z: float, rot_range: float = 0.15) -> FaceScene:
+    """``sample_face_at`` with the JAX package's draws: its
+    ``sample_face_at(key, ...)`` for a JAX key (``utils.jax_random``)."""
+    k1, k4 = jax_random.split(key)
+    rot = jax_random.uniform(k1, (3,), -rot_range, rot_range)
+    if jax_random.bernoulli(k4, 0.5):
+        au02 = jax_random.uniform(jax_random.fold_in(k4, 1), (), 0.6, 1.0)
+    else:
+        au02 = jax_random.uniform(jax_random.fold_in(k4, 2), (), 0.0, 0.15)
+    return scene_from_pose(rot, np.asarray(txy, _F32), _F32(z), au02, hw, fx, fy)
+
+
 def stack_scenes(scenes) -> FaceScene:
     """Scenes stacked on a leading face axis."""
     return FaceScene(*(np.stack([getattr(s, f) for s in scenes]) for f in FaceScene._fields))

@@ -23,6 +23,7 @@ import numpy as np
 import torch
 
 from perception_tpu_torch.models._render import crop_heatmaps, jittered_boxes, pixel_grid, point_distance, segment_distance
+from perception_tpu_torch.utils import jax_random
 
 # Canonical 21-point hand in a unit box (x right, y down), palm down,
 # fingers up: 0 wrist; 1-4 thumb; 5-8 index; 9-12 middle; 13-16 ring;
@@ -80,6 +81,25 @@ def sample_hand(
     return HandScene(joints=pts.astype(np.float32), scale=s)
 
 
+def sample_hand_from_key(key: np.ndarray, hw: Tuple[int, int], scale_range: Tuple[float, float] = (0.45, 0.8),
+                         flex: float = 0.03) -> HandScene:
+    """``sample_hand`` with the JAX package's draws: its ``sample_hand(key,
+    ...)`` for a JAX key (``utils.jax_random``), in float32 (the rotation's
+    cos/sin may differ from XLA's by an ulp)."""
+    H, W = hw
+    k1, k2, k3, k4 = jax_random.split(key, 4)
+    s = jax_random.uniform(k1, (), scale_range[0], scale_range[1]) * _F32(min(H, W))
+    th = jax_random.uniform(k2, (), -np.pi, np.pi)
+    c, sn = np.cos(th), np.sin(th)
+    R = np.array([[c, -sn], [sn, c]], np.float32)
+    pts = (CANONICAL_HAND - _F32(0.5)) @ R.T * s
+    span = _F32(0.55) * s
+    pts = pts + jax_random.uniform(k3, (2,), span, np.array([W, H], np.float32) - span)
+    pts = pts + jax_random.normal(k4, pts.shape) * _F32(flex) * s
+    pts = np.clip(pts, _F32(2.0), np.array([W - 3.0, H - 3.0], np.float32))
+    return HandScene(joints=pts.astype(np.float32), scale=s)
+
+
 def hand_box(joints: np.ndarray, margin: float = 1.3) -> np.ndarray:
     """A square box around (..., 21, 2) joints, ``margin`` times their span."""
     joints = np.asarray(joints, np.float32)
@@ -116,11 +136,14 @@ def render_hands(joints: torch.Tensor, scale: torch.Tensor, hw: Tuple[int, int],
     return torch.clamp(img, 0.0, 255.0)
 
 
-def render_hand(scene: HandScene, hw: Tuple[int, int], rng: np.random.Generator = None) -> np.ndarray:
+def render_hand(scene: HandScene, hw: Tuple[int, int], rng: np.random.Generator = None,
+                noise: Optional[np.ndarray] = None) -> np.ndarray:
     """``render_hands`` of one scene on the CPU: (H, W) float32 grayscale in
-    [0, 255]; with ``rng``, plus Gaussian noise of standard deviation 2
-    drawn from it."""
-    noise = None if rng is None else torch.from_numpy(rng.standard_normal(hw).astype(np.float32))[None]
+    [0, 255], plus Gaussian noise of standard deviation 2: ``noise`` (H, W)
+    standard normal values, else drawn from ``rng``, else none."""
+    if noise is None and rng is not None:
+        noise = rng.standard_normal(hw).astype(np.float32)
+    noise = None if noise is None else torch.from_numpy(np.asarray(noise, np.float32))[None]
     joints = torch.from_numpy(np.asarray(scene.joints, np.float32))[None]
     return render_hands(joints, torch.tensor([float(scene.scale)]), hw, noise)[0].numpy()
 

@@ -11,6 +11,7 @@ same format, which the JAX package's ``load_fixture`` reads.
 from __future__ import annotations
 
 from pathlib import Path
+from typing import Union
 
 import numpy as np
 import torch
@@ -20,9 +21,10 @@ from perception_tpu_torch.convert import handnet_from_flax, handnet_to_flax
 from perception_tpu_torch.io.flax_msgpack import read_tree, write_tree
 from perception_tpu_torch.models.face import decode_landmarks
 from perception_tpu_torch.models.hand import LEFT_ARM, RIGHT_ARM, HandLandmarkNet, crop_image, hand_roi_from_pose
-from perception_tpu_torch.models.hand_data import hand_box, render_hand, sample_hand
+from perception_tpu_torch.models.hand_data import hand_box, render_hand, sample_hand, sample_hand_from_key
 from perception_tpu_torch.models.pose import flax_init_
 from perception_tpu_torch.models.pose_fixture import _half
+from perception_tpu_torch.utils import jax_random
 
 FIXTURE_HW = (96, 96)
 FIXTURE_CROP = 64
@@ -95,12 +97,29 @@ def sample_scenes(generator: np.random.Generator, n_scenes: int, hw=FIXTURE_HW):
     return out
 
 
-def evaluate(net: HandLandmarkNet, generator: np.random.Generator, n_scenes: int = 12,
-             device="cuda") -> float:
+def evaluate(net: HandLandmarkNet, generator: Union[np.random.Generator, np.ndarray], n_scenes: int = 12,
+             pixel_noise: float = 0.0, device="cuda") -> float:
     """Mean landmark error (image px) over fresh scenes with their true
-    boxes (``sample_scenes``)."""
+    boxes: ``sample_scenes`` of a numpy generator, or for a JAX key
+    (``utils.jax_random``) the scenes and noise of the JAX package's
+    ``evaluate(params, key)``, scene i from ``fold_in(key, i)`` split in
+    two. ``pixel_noise`` (a fraction of 255) adds noise, the held-out
+    noisy families of FIXTURES.md: drawn after the scenes from a
+    generator, from ``fold_in(k2, 99)`` for a key."""
+    if isinstance(generator, np.random.Generator):
+        scenes = sample_scenes(generator, n_scenes)
+        extra = [generator.standard_normal(FIXTURE_HW).astype(np.float32) for _ in scenes] if pixel_noise > 0 else None
+    else:
+        scenes, extra = [], []
+        for i in range(n_scenes):
+            k1, k2 = jax_random.split(jax_random.fold_in(generator, i))
+            scene = sample_hand_from_key(k1, FIXTURE_HW)
+            scenes.append((scene, render_hand(scene, FIXTURE_HW, noise=jax_random.normal(k2, FIXTURE_HW))))
+            extra.append(jax_random.normal(jax_random.fold_in(k2, 99), FIXTURE_HW))
     errs = []
-    for scene, img in sample_scenes(generator, n_scenes):
+    for i, (scene, img) in enumerate(scenes):
+        if pixel_noise > 0.0:
+            img = np.clip(img + extra[i] * np.float32(pixel_noise * 255.0), np.float32(0.0), np.float32(255.0))
         box = torch.from_numpy(hand_box(scene.joints)).to(device)
         uv, m, _ = extract_hand_tiny(net, torch.from_numpy(img).to(device), box)
         e = np.linalg.norm(uv.cpu().numpy() - scene.joints, axis=-1)

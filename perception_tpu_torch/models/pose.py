@@ -287,9 +287,20 @@ def flax_init_(net: nn.Module, generator: torch.Generator) -> nn.Module:
     return net
 
 
-def init_posenet(generator: torch.Generator, topology: str = "BODY_25", device="cuda") -> PoseNet:
-    """A ``PoseNet`` for ``topology`` with flax's default initialisation
-    (``flax_init_``), drawn from ``generator`` (a CPU generator)."""
+def init_posenet(generator, topology: str = "BODY_25", device="cuda") -> PoseNet:
+    """A ``PoseNet`` for ``topology`` with flax's default initialisation,
+    drawn from ``generator`` (a CPU ``torch.Generator``, ``flax_init_``), or
+    from a JAX key (a numpy (2,) uint32 array, ``utils.jax_random``): the
+    weights of the JAX package's ``init_posenet(key, topology)``, equal but
+    for a few one or two ulps apart."""
     parts, pairs = lookup_topology(topology)
-    net = flax_init_(PoseNet(num_parts=len(parts), num_limbs=len(pairs)), generator)
+    net = PoseNet(num_parts=len(parts), num_limbs=len(pairs))
+    if isinstance(generator, torch.Generator):
+        flax_init_(net, generator)
+    else:
+        from perception_tpu_torch.convert import posenet_from_flax, posenet_to_flax
+        from perception_tpu_torch.utils import jax_random
+
+        tree = jax_random.flax_init_params(posenet_to_flax(net), generator)
+        net.load_state_dict(posenet_from_flax(tree, net, "cpu"))
     return net.requires_grad_(False).eval().to(device)

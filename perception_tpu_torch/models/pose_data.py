@@ -24,6 +24,7 @@ import torch
 
 from perception_tpu_torch.models._render import gaussian_maps, pixel_grid, point_distance, segment_distance
 from perception_tpu_torch.models.pose import MPI_15_PAIRS
+from perception_tpu_torch.utils import jax_random
 
 # Canonical MPI_15 skeleton in a unit box (x right, y down).
 _CANONICAL_MPI15 = np.array(
@@ -94,6 +95,37 @@ def sample_skeletons(
     pts = np.clip(pts, _F32(2.0), np.array([W - 3.0, H - 3.0], np.float32))
 
     n_valid = rng.integers(min_people, n_people + 1)
+    return SkeletonScene(joints=pts.astype(np.float32), valid=np.arange(n_people) < n_valid)
+
+
+def sample_skeletons_from_key(
+    key: np.ndarray,
+    hw: Tuple[int, int],
+    n_people: int = 2,
+    min_people: int = 1,
+    scale_range: Tuple[float, float] = (0.45, 0.75),
+    jitter: float = 0.02,
+) -> SkeletonScene:
+    """``sample_skeletons`` with the JAX package's draws: its
+    ``sample_skeletons(key, ...)`` for a JAX key (``utils.jax_random``), in
+    float32 (the rotation's cos/sin and the einsum may differ from XLA's by
+    an ulp)."""
+    H, W = hw
+    P = _CANONICAL_MPI15.shape[0]
+    k1, k2, k3, k4, k5, k6 = jax_random.split(key, 6)
+    scale = jax_random.uniform(k1, (n_people, 1, 1), scale_range[0], scale_range[1]) * _F32(min(H, W))
+    theta = jax_random.uniform(k2, (n_people,), -0.25, 0.25)
+    c, s = np.cos(theta), np.sin(theta)
+    rot = np.stack([np.stack([c, -s], -1), np.stack([s, c], -1)], -2)  # (N, 2, 2)
+    pts = np.einsum("nij,pj->npi", rot, _CANONICAL_MPI15 - _F32(0.5)) * scale
+
+    span = scale[:, 0, 0]
+    tx = jax_random.uniform(k3, (n_people,), _F32(0.55) * span, W - _F32(0.55) * span)
+    ty = jax_random.uniform(k4, (n_people,), _F32(0.55) * span, H - _F32(0.55) * span)
+    pts = pts + np.stack([tx, ty], -1)[:, None, :]
+    pts = pts + jax_random.normal(k5, (n_people, P, 2)) * _F32(jitter) * scale
+    pts = np.clip(pts, _F32(2.0), np.array([W - 3.0, H - 3.0], np.float32))
+    n_valid = jax_random.randint(k6, (), min_people, n_people + 1)
     return SkeletonScene(joints=pts.astype(np.float32), valid=np.arange(n_people) < n_valid)
 
 
@@ -173,6 +205,19 @@ def draw_batch(generator: np.random.Generator, batch: int, hw: Tuple[int, int], 
         return PoseDraws(scene, None, None)
     level = generator.random(batch, dtype=np.float32)
     return PoseDraws(scene, level, generator.standard_normal((batch, *hw, 3), dtype=np.float32))
+
+
+def draw_batch_from_key(key: np.ndarray, batch: int, hw: Tuple[int, int], n_people: int = 2,
+                        pixel_noise: float = 0.0) -> PoseDraws:
+    """The draws of the JAX package's ``make_batch(key, batch, hw, ...)``
+    (``utils.jax_random``): a scene from each of ``split(key, batch)``, the
+    noise level and noise from ``fold_in(key, 7)``."""
+    scene = stack_scenes([sample_skeletons_from_key(k, hw, n_people) for k in jax_random.split(key, batch)])
+    if pixel_noise <= 0.0:
+        return PoseDraws(scene, None, None)
+    nk = jax_random.fold_in(key, 7)
+    level = jax_random.uniform(nk, (batch,))
+    return PoseDraws(scene, level, jax_random.normal(jax_random.fold_in(nk, 1), (batch, *hw, 3)))
 
 
 def make_batch(generator: Optional[np.random.Generator], batch: int, hw: Tuple[int, int], n_people: int = 2,

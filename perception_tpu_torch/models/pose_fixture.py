@@ -12,7 +12,7 @@ JAX package's ``load_fixture`` reads.
 from __future__ import annotations
 
 from pathlib import Path
-from typing import Tuple
+from typing import Tuple, Union
 
 import numpy as np
 import torch
@@ -20,7 +20,8 @@ import torch
 from perception_tpu_torch.convert import posenet_from_flax, posenet_to_flax
 from perception_tpu_torch.io.flax_msgpack import read_tree, write_tree
 from perception_tpu_torch.models.pose import PoseNet, extract_people, flax_init_
-from perception_tpu_torch.models.pose_data import render_people, sample_skeletons, stack_scenes
+from perception_tpu_torch.models.pose_data import (SkeletonScene, draw_batch_from_key, render_people, sample_skeletons,
+                                                   stack_scenes)
 
 FIXTURE_HW = (128, 128)
 FIXTURE_TOPOLOGY = "MPI_15"
@@ -118,8 +119,14 @@ def sample_scenes(generator: np.random.Generator, n_scenes: int, hw=FIXTURE_HW):
     return stack_scenes(scenes), np.stack([render_people(s, hw) for s in scenes])
 
 
-def evaluate_pck(net: PoseNet, generator: np.random.Generator, n_scenes: int = 8,
+def evaluate_pck(net: PoseNet, generator: Union[np.random.Generator, np.ndarray], n_scenes: int = 8,
                  tol_px: float = 10.0, stride: int = 8, device="cuda") -> Tuple[float, float]:
-    """PCK and recall on fresh synthetic scenes drawn from ``generator``."""
-    scenes, images = sample_scenes(generator, n_scenes)
+    """PCK and recall on fresh synthetic scenes drawn from ``generator``, or
+    from a JAX key (``utils.jax_random``): the scenes of the JAX package's
+    ``evaluate_pck(params, key, ...)``, rendered by the port."""
+    if isinstance(generator, np.random.Generator):
+        scenes, images = sample_scenes(generator, n_scenes)
+    else:
+        scenes = draw_batch_from_key(generator, n_scenes, FIXTURE_HW).scene
+        images = np.stack([render_people(SkeletonScene(j, v), FIXTURE_HW) for j, v in zip(scenes.joints, scenes.valid)])
     return pck_on_images(net, images, scenes, tol_px=tol_px, stride=stride, device=device)

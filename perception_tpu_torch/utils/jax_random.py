@@ -110,11 +110,26 @@ def fma32(a, b, c) -> np.ndarray:
 
 
 def uniform(k: np.ndarray, shape: Sequence[int] = (), minval=0.0, maxval=1.0) -> np.ndarray:
-    """``jax.random.uniform(k, shape, float32, minval, maxval)``."""
-    lo, hi = _F32(minval), _F32(maxval)
+    """``jax.random.uniform(k, shape, float32, minval, maxval)``; the bounds
+    may be arrays that broadcast against ``shape``."""
+    lo, hi = np.asarray(minval, _F32), np.asarray(maxval, _F32)
     bits = (random_bits(k, shape) >> np.uint32(9)) | np.uint32(0x3F800000)
     floats = bits.view(_F32) - _F32(1.0)
     return np.maximum(lo, fma32(floats, hi - lo, lo))
+
+
+def randint(k: np.ndarray, shape: Sequence[int], minval: int, maxval: int) -> np.ndarray:
+    """``jax.random.randint(k, shape, minval, maxval)`` (int32): two 32-bit
+    draws a value, reduced modulo the span in uint32 arithmetic that wraps
+    as XLA's does."""
+    k1, k2 = split(k)
+    higher, lower = random_bits(k1, shape), random_bits(k2, shape)
+    span = np.uint32(1 if maxval <= minval else maxval - minval)
+    with np.errstate(over="ignore"):
+        mult = np.uint32(2 ** 16) % span
+        mult = (mult * mult) % span
+        offset = ((higher % span) * mult + lower % span) % span
+    return (np.int32(minval) + offset.astype(np.int32)).astype(np.int32)
 
 
 def bernoulli(k: np.ndarray, p: float = 0.5, shape: Sequence[int] = ()) -> np.ndarray:

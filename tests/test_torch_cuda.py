@@ -782,3 +782,33 @@ def test_cuda_measure_stage_times_a_matmul(cuda_device):
     assert st.gflops_per_s == pytest.approx(st.flops / (st.ms * 1e-3) / 1e9)
     if roofline.device_peaks(cuda_device) is not None:
         assert st.mfu_f32_pct is not None and st.hbm_pct is not None and st.bound != "unknown"
+
+
+def test_cuda_render_points_3d_and_depth_to_vis_match_cpu(cuda_device):
+    from perception_tpu_torch.bench.scene import render_depth_tabletop
+    from perception_tpu_torch.geometry.camera import PinholeCamera
+    from perception_tpu_torch.models.viz import depth_to_vis, render_points_3d, render_points_3d_reference
+
+    cam = PinholeCamera.d435_depth()
+    depth = render_depth_tabletop(cam, seed=0)
+    depth[::9, ::13] = np.nan
+    assert torch.equal(depth_to_vis(torch.as_tensor(depth, device=cuda_device), 1.2).cpu(),
+                       depth_to_vis(torch.as_tensor(depth), 1.2))
+    pts, mask = cam.backproject_depth(torch.as_tensor(np.nan_to_num(depth)))
+    cloud = pts[mask][::7].numpy()
+    eye = (0.3, -0.4, 0.1)
+    card = render_points_3d(torch.as_tensor(cloud, device=cuda_device), eye=eye)
+    assert card.device.type == "cuda"
+    assert np.array_equal(card.cpu().numpy(), render_points_3d(torch.as_tensor(cloud), eye=eye).numpy())
+    assert np.array_equal(card.cpu().numpy(), render_points_3d_reference(cloud, eye=eye))
+
+
+def test_cuda_example_01_launches_k1_once(cuda_device):
+    from examples_torch._common import load
+    from perception_tpu_torch.ops.kernels.ransac_score import ransac_score
+
+    before = ransac_score.launches
+    out = load("01_cuboid_pose_from_depth").main(cuda_device)
+    torch.cuda.synchronize()
+    assert ransac_score.launches == before + 1
+    assert out["accepted"] and np.isfinite(out["pose"]).all()
