@@ -3,14 +3,15 @@
 Builds the port's three kernels from ``perception_tpu_torch/csrc`` (one
 ``nvcc`` per source, all started together) and holds each against its
 plain PyTorch version at the shapes its path gives it: K1, fused RANSAC
-scoring, bit-exact (B=1 and 8 at N=8192 for the cuboid, 32768 for the
+scoring, bit-exact (B=1, 2, 4 and 8 at N=8192 for the cuboid, 32768 for the
 detection service, 24576 for the tracker, and K=1023, B=3 edges; random
 points, and points exactly at +-tau, one ulp past it, -0.0, NaN and +-inf,
 valid and masked; and B=1 N=8192 K=512 for the surface frame), its launch
-plan printed and held to at least 8 warps an SM at the four K=1024 path
+plan printed and held to at least 8 warps an SM at the six K=1024 path
 shapes (K=512 is exempt: 128 blocks, 7.76 warps an SM); K2, the fused Gauss-Newton ICP system,
 with equal gate counts and M within rtol/atol 1e-4; K3+K4, the voxel-hash query,
-bit-exact below and above 49152 table rows. Then drives the port's
+bit-exact below and above 49152 table rows, and on the clouds and shapes of
+the bench's nearest-neighbour crossover. Then drives the port's
 paths through their entry points, each with the kernels' launch counts
 set to 0 just before it and read just after:
 
@@ -31,7 +32,8 @@ set to 0 just before it and read just after:
   first 12 frames (same RANSAC triplets); ``slam_step``'s host syncs,
   from torch's sync debug mode, held to the reads it states; a
   stage-timed pass (odometry, features, matching, RANSAC+PnP, BA, pose
-  graph) and timed passes (frames/s, ms per tracking / promotion frame);
+  graph; ms per tracking / promotion frame) and the counted run's wall
+  time (the benchmark's SLAM rows below are the timed passes);
 - the cuboid pipeline's other modes on the 8 bench frames at B=8:
   ``cluster_filter="cc"`` and ``icp_mode="p2p"`` (acceptance, pose against
   ground truth, the card against the CPU), and ``CuboidConfig.pcl_parity()``
@@ -45,10 +47,10 @@ set to 0 just before it and read just after:
   (the spread of its chamfer and of the card-CPU translation), the host
   syncs held to the stated count, ms per call;
 - the streaming tracker through ``track_step_from_depth`` in
-  ``benchmarks/tracking_bench.py``'s setting (300 frames at 640x480, three
-  cuboids): frames/s, median and p90 error, latched and warm shares,
-  gated; the card against the CPU over the first frames; one host read of
-  ``steady`` a frame;
+  ``benchmarks/tracking_bench.py``'s setting (640x480, three cuboids): the
+  card against the CPU over the first frames, one host read of ``steady``
+  a frame, stage ms and the busy share (its 300-frame run, gated, is the
+  benchmark's tracker row below);
 - the pose and hand path of the CNN facade, which runs none of the three
   kernels (its CNN is cuDNN, its decode PyTorch): the repo's trained tiny
   MPI_15 PoseNet through ``extract_people`` on 8 seeded scenes at 128x128
@@ -71,9 +73,10 @@ set to 0 just before it and read just after:
   (three slots, two throttled frames, the per-face AU02 gate), card
   against CPU, no host sync;
 - the ``Perception`` facade at ``benchmarks/facade_bench.py``'s setting
-  (MPI_15 fixture, 4 face slots, hands of 2 people, 120 pre-staged
-  256x256 three-face frames a pass): frames/s, faces tracked, stage ms,
-  busy share, no host sync, the card's datum against the CPU's; and at
+  (MPI_15 fixture, 4 face slots, hands of 2 people, 256x256 three-face
+  frames): faces tracked and carried over 120 frames, stage ms, busy share, no host sync, the card's
+  datum against the CPU's (its timed pass is the benchmark's facade row
+  below); and at
   full width (BODY_25 PoseNet at 368x368 with seeded weights on 480x640
   frames with three faces): ms a frame, card against CPU. In both
   comparisons the face landmark heatmaps are held within 1e-4, and a
@@ -109,8 +112,8 @@ set to 0 just before it and read just after:
   scene as a mm PNG with each class's template as PCD, at the CLI's
   defaults (the JAX CLI's answers on the same files: success, winning
   cluster, sizes and size difference equal, chamfer within 0.05 cm),
-  ``odometry --tum`` and ``slam --tum`` over the 300-frame sweep written
-  as a TUM sequence at 640x480 (ATE at most 2 cm, the ``--out``
+  ``odometry --tum`` and ``slam --tum`` over the sweep's first 100 frames
+  written as a TUM sequence at 640x480 (ATE at most 2 cm, the ``--out``
   trajectory read back and within 1e-4 of ``run_odometry`` /
   ``run_slam`` on the decoded arrays, frames/s from files), ``pose
   --image`` (the people of the in-memory facade); the PNG decode ms a
@@ -173,6 +176,19 @@ set to 0 just before it and read just after:
   people on run_pose's 8 frames written and read back equal,
   ``tools_torch/make_tum_fixture.py`` against the committed fixture and
   ``tools_torch/fixtures_robustness.py`` on the card against FIXTURES.md.
+- the port's headline benchmark (``run_bench``): ``cli.main(["bench"])``
+  in this process at ``bench.py``'s full sizes, its JSON line printed and
+  held: the metric; frames/s at B = 1, 2, 4 and 8 with their spreads, the
+  value the best of them; ``vs_baseline`` the value over the median of 3
+  CPU-baseline passes; the SLAM rows (keyframe mode with BA and without,
+  map fusion at 32768; ``bench.py``'s configurations, on the op graph and
+  the shortlist) within 2 cm ATE, BA runs and loop closures; the
+  tracker's gates (latched >= 95%, median <= 2 cm, p90 <= 5 cm); 3 faces
+  in the facade; ``agree_pct`` and ``agree_cold_pct`` 100 at the four NN
+  sizes; no ``*_error`` key; K1 / K2 / K3+K4 launches, counted by shape
+  in the wrappers, exactly those worked out from the bench's loops
+  (``bench_launches``); the phase's peak device memory. The kernels line
+  takes the bench's launches from those counts by shape.
 
 Each kernel is timed at its path's shapes against its plain version, in
 turns (plain, kernel, kernel, plain): the kernel's eager wrapper call by
@@ -199,6 +215,7 @@ from __future__ import annotations
 
 import contextlib
 import dataclasses
+import io
 import itertools
 import json
 import multiprocessing
@@ -212,7 +229,7 @@ import numpy as np
 import torch
 
 FRAMES = 8
-K1_TIMED = ((1, 8192), (8, 8192), (1, 32768), (1, 24576))  # the path shapes (B, N) at K=1024
+K1_TIMED = ((1, 8192), (2, 8192), (4, 8192), (8, 8192), (1, 32768), (1, 24576))  # the path shapes (B, N) at K=1024
 K1_SURFACE = (1, 8192, 512)  # (B, N, K): estimate_surface_frame's three fits on the work cloud
 K1_EXAMPLES = ((1, 32768, 256), (1, 16384, 1024))  # examples 09 and 12: shapes no other path gives K1
 KERNEL_SHAPES = [  # (B, N, K, inputs): "random", "edges" (k1_edge_inputs) or "all masked"
@@ -244,8 +261,7 @@ K3_CASES = [  # (map points, queries, query order, all map points masked)
 ODO_FRAMES = 40
 CPU_FRAMES = 5
 SLAM_FRAMES = 300        # the SLAM bench's sweep_trajectory(n=300)
-SLAM_CPU_FRAMES = 12     # card against CPU: two promotions, each with a BA run
-SLAM_PASSES = 1          # timed passes per SLAM configuration: one keeps the run well inside its limit
+SLAM_CPU_FRAMES = 12     # card against CPU (and host syncs): two promotions, each with a BA run
 PROFILE_FRAMES = 30      # slam_step calls under torch.profiler (keyframe+BA K2, map hash)
 OBJ_CLASSES = ("eraser", "screwdriver", "clamp", "marker")
 OBJ_TIMED_CALLS = 3      # timed detect_object calls per class, after a warm-up
@@ -276,6 +292,7 @@ OBJ_CLI_JAX_REFERENCE = {
 }
 TRACK_FRAMES = 300       # tracking_bench.py's camera_trajectory(300)
 TRACK_CPU_FRAMES = 6     # tracker on the card against the CPU
+TRACK_CHECK_FRAMES = 30  # the sweep's first frames, rendered for the tracker phase's checks
 TRACK_SYNC_FRAMES = 4    # tracker steps under torch's sync debug mode
 PARITY_FRAMES = 2        # bench frames through CuboidConfig.pcl_parity()
 # The JAX package's translation errors in mm on the 8 bench frames under
@@ -327,8 +344,9 @@ PERSON_PADS = 4
 PERSON_SHIFT = 2         # px a frame, the texture and the people
 
 
-CLI_ODO_FRAMES = 300     # cli odometry --tum over the whole 640x480 sweep
-CLI_SLAM_FRAMES = 300    # cli slam --tum over the whole sweep
+CLI_FRAMES = 100         # cli odometry / slam --tum over the sweep's first frames at 640x480: over all 300
+                         # frames run_cli took 105.2 s on an H100 (34.8 s at 100), and the run has a
+                         # time limit; the benchmark runs the whole 300-frame sweep in memory
 CLI_POSE_TOL = 1e-4      # m and rotation entries: the --out file (6 decimals) against the in-memory run
 LEAF_SEED = 40           # leaf_rgb's textures: numpy's default_rng(LEAF_SEED + frame)
 CHAIN_CAMERAS = 4
@@ -470,13 +488,23 @@ def graph_ms(fn, calls=20, replays=10):
     return start.elapsed_time(stop) / (calls * replays)
 
 
+def device_events(prof):
+    """(name, us) of each device event of a finished ``torch.profiler`` run,
+    read from its kineto results: the events and durations that
+    ``prof.events()`` gives, without building its tree of host events,
+    which takes tens of seconds for a few hundred thousand of them."""
+    from torch.autograd import DeviceType
+
+    return [(e.name(), (e.end_ns() - e.start_ns()) / 1e3) for e in prof.profiler.kineto_results.events()
+            if e.device_type() == DeviceType.CUDA and not e.is_hidden_event()]
+
+
 def profile_launches(fn, calls=20):
     """{kernel: mean device us per launch} over ``calls`` eager calls, by
     torch.profiler (a process that profiled before may drop events, so
     only per-launch means are kept)."""
     import re
 
-    from torch.autograd import DeviceType
     from torch.profiler import ProfilerActivity, profile
 
     fn()
@@ -486,12 +514,11 @@ def profile_launches(fn, calls=20):
             fn()
         torch.cuda.synchronize()
     total, count = {}, {}
-    for e in prof.events():
-        if e.device_type == DeviceType.CUDA:
-            m = re.search(r"[a-z][a-z_]*_kernel", e.name)
-            name = m.group(0) if m else e.name[:40]
-            total[name] = total.get(name, 0.0) + (e.time_range.end - e.time_range.start)
-            count[name] = count.get(name, 0) + 1
+    for event, us in device_events(prof):
+        m = re.search(r"[a-z][a-z_]*_kernel", event)
+        name = m.group(0) if m else event[:40]
+        total[name] = total.get(name, 0.0) + us
+        count[name] = count.get(name, 0) + 1
     return {name: total[name] / count[name] for name in total}
 
 
@@ -704,13 +731,32 @@ def k3_case(m, nq, order, all_masked, device, seed=0):
     return voxelhash.kernel_args(vh, q)
 
 
+def crossover_cases(device):
+    """The kernel's arguments at the benchmark's nearest-neighbour crossover
+    sizes (``headline.NN_SIZES``), on its own clouds (``nn_crossover.clouds``),
+    the queries sorted into cell order as its warm and cold calls hand them
+    to the kernel. A list of ((queries, map points), (args, overflow))."""
+    from perception_tpu_torch.bench import headline, nn_crossover
+    from perception_tpu_torch.ops import voxelhash
+
+    cases = []
+    for nq, m, ref, q in nn_crossover.clouds(headline.NN_SIZES):
+        vh = voxelhash.build(torch.from_numpy(ref).to(device), torch.ones(m, dtype=torch.bool, device=device),
+                             nn_crossover.RADIUS)
+        q_sorted, _ = voxelhash.sort_by_cell(vh, torch.from_numpy(q).to(device))
+        cases.append(((nq, m), voxelhash.kernel_args(vh, q_sorted)))
+    return cases
+
+
 def check_k3(device):
     """K3+K4 against its plain version: torch.equal on idx and d2; returns max |diff| of d2."""
     from perception_tpu_torch.ops.kernels.voxelhash_query import voxelhash_query, voxelhash_query_reference
 
+    cases = [((m, nq, order, all_masked), k3_case(m, nq, order, all_masked, device))
+             for m, nq, order, all_masked in K3_CASES]
+    cases += [((m, nq, "crossover", False), case) for (nq, m), case in crossover_cases(device)]
     worst = 0.0
-    for m, nq, order, all_masked in K3_CASES:
-        args, overflow = k3_case(m, nq, order, all_masked, device)
+    for (m, nq, order, all_masked), (args, overflow) in cases:
         idx, d2 = voxelhash_query(*args)
         torch.cuda.synchronize()
         ridx, rd2 = voxelhash_query_reference(*args)
@@ -720,7 +766,7 @@ def check_k3(device):
               f"all_masked={all_masked}: equal {equal}, tile {tile}, chunks max {int(nchunk.max())}, "
               f"overflow {float(overflow):.3f}, found {float((rd2[:nq] <= 0.06 ** 2).float().mean()):.3f}")
         require(equal, f"K3+K4 != plain version at {(m, nq, order, all_masked)}")
-        require(order == "sorted" or float(overflow) > 0, "unsorted queries did not overflow any tile")
+        require(order != "caller" or float(overflow) > 0, "unsorted queries did not overflow any tile")
         require(not all_masked or float(rd2[:nq].min()) > 1e11, "all-masked table found a neighbour")
         worst = max(worst, float((d2 - rd2).abs().max()))
     return worst
@@ -737,12 +783,15 @@ def time_k3(device):
     )
 
     times = {}
-    for m, nq in ((32768, 2048), (65536, 4096)):
-        args, _ = k3_case(m, nq, "sorted", False, device, seed=1)
+    cases = [((m, nq), f"map {m}, {nq} sorted queries", k3_case(m, nq, "sorted", False, device, seed=1)[0])
+             for m, nq in ((32768, 2048), (65536, 4096))]
+    cases += [(("crossover", nq, m), f"NN crossover {nq} queries, {m} map points", args)
+              for (nq, m), (args, _) in crossover_cases(device)]
+    for key, label, args in cases:
         table, queries, start, nchunk, tile, R, rblk = args
         plan = launch_plan(queries.shape[0], tile, R, rblk, sm_count(device.index))
         print(f"K3+K4 launch plan at {queries.shape[0]} queries, tile {tile}, R {R}, rblk {rblk}: {plan}")
-        require(plan.blocks >= 2 * sm_count(device.index), f"K3+K4 launches under 2 blocks per SM at {(m, nq)}")
+        require(plan.blocks >= 2 * sm_count(device.index), f"K3+K4 launches under 2 blocks per SM at {key}")
         live = {}
 
         def work():
@@ -753,8 +802,8 @@ def time_k3(device):
             live.update(pairs=int(rows.sum()) * tile, pieces=int(torch.ceil(rows / plan.piece_rows).sum()))
             return 9 * live["pairs"], nbytes(table, queries, start, nchunk) + 8 * queries.shape[0]
 
-        times[(m, nq)] = timed(f"K3+K4 voxelhash_query (map {m}, {nq} sorted queries)",
-                               lambda: voxelhash_query(*args), lambda: voxelhash_query_reference(*args), work)
+        times[key] = timed(f"K3+K4 voxelhash_query ({label})",
+                           lambda: voxelhash_query(*args), lambda: voxelhash_query_reference(*args), work)
         print(f"  K3+K4 work: {live['pairs']} pairs, live pieces {live['pieces']} of {plan.blocks} blocks")
     return times
 
@@ -764,7 +813,8 @@ def translation_errors(res, gts):
 
 
 def run_slice(device):
-    """Drive the main path on the card and check it; returns its results."""
+    """Drive the main path on the card and check it; returns the K1
+    launches of its counted B=1 and B=8 calls."""
     from perception_tpu_torch.bench.scene import bench_frames, benchmark_template
     from perception_tpu_torch.geometry.camera import PinholeCamera
     from perception_tpu_torch.models.cuboid import (
@@ -842,7 +892,7 @@ def run_slice(device):
     require(bool((c.fitness < cfg.fitness_threshold).all() and (g.fitness < cfg.fitness_threshold).all()),
             "fitness over the gate")
     require(np.all(rel <= 5e-2), "CUDA and CPU fitness differ by more than rtol 5e-2")
-    return launches, one, batch
+    return launches
 
 
 def wrappers():
@@ -857,27 +907,28 @@ def wrappers():
 def reset_launches():
     for w in wrappers().values():
         w.launches = 0
+        w.launches_by_shape.clear()
 
 
 def read_launches():
     return {name: w.launches for name, w in wrappers().items()}
 
 
+def read_launch_shapes():
+    """Each wrapper's launches by the shape it launched at: K1 (B, N, K),
+    K2 (R, Np, Mp), K3+K4 (padded queries, table rows)."""
+    return {name: dict(w.launches_by_shape) for name, w in wrappers().items()}
+
+
 def slam_scene(frames=SLAM_FRAMES):
     """The SLAM bench's 640x480 camera and the textured room along
-    ``sweep_trajectory(n=300)``, its first ``frames`` poses rendered once
-    (frames in parallel; seed = frame index): (camera, gt (frames, 4, 4),
-    grays, depths (frames, H, W))."""
-    from perception_tpu_torch.bench.slam_bench import bench_camera
-    from perception_tpu_torch.bench.slam_scene import render_textured_room, sweep_trajectory
+    ``sweep_trajectory(n=300)``, rendered once (``slam_bench.rendered_sequence``,
+    which the benchmark's SLAM rows reuse), its first ``frames`` poses:
+    (camera, gt (frames, 4, 4), grays, depths (frames, H, W))."""
+    from perception_tpu_torch.bench.slam_bench import rendered_sequence
 
-    camera = bench_camera(640, 480)
-    gt = sweep_trajectory(n=SLAM_FRAMES)[:frames]
-    with ThreadPoolExecutor(8) as pool:
-        images = list(pool.map(lambda i: render_textured_room(camera, gt[i], seed=i), range(frames)))
-    grays = np.stack([g for g, _ in images])
-    depths = np.stack([d for _, d in images])
-    return camera, np.stack(gt), grays, depths
+    camera, gt, grays, depths = rendered_sequence(SLAM_FRAMES, 640, 480)
+    return camera, gt[:frames], grays[:frames], depths[:frames]
 
 
 def odometry_configs():
@@ -1188,7 +1239,8 @@ def run_slam_paths(device, scene):
         ran = s["ba_ran"]
         print(f"{name}: ATE rmse {res.rmse * 100:.3f} cm (max {res.max * 100:.3f}), keyframes {s['keyframes']}, "
               f"loop closures {s['loop_closures']}, BA runs {s['ba_runs']}, landmarks {s['landmarks']}, "
-              f"observations {s['observations']}, launches {counts}, counted run {first_s:.1f} s")
+              f"observations {s['observations']}, launches {counts}, counted run {first_s:.1f} s "
+              f"({(SLAM_FRAMES - 1) / first_s:.2f} frames/s with its first steps)")
         if s["ba_runs"]:
             print(f"{name}: BA cost px^2 before/after, median {np.median(s['ba_cost0'][ran]):.4f} / "
                   f"{np.median(s['ba_cost1'][ran]):.4f}, worst after-before "
@@ -1242,17 +1294,6 @@ def run_slam_paths(device, scene):
                   f"{prof['device_ops']} device ops, wall {prof['wall_ms_per_step']:.2f} ms a step, "
                   f"K2 {prof['icp_gn_ms_per_step']:.4f} ms and K3+K4 "
                   f"{prof['voxelhash_query_ms_per_step']:.4f} ms of device time a step")
-
-        rates, ms, promoted = [], [], []
-        for _ in range(SLAM_PASSES):
-            fps, frame_ms, prom = slam_pass(camera, depths, grays, cfg)
-            rates.append(fps)
-            ms.append(frame_ms)
-            promoted.append(prom)
-        ms, promoted = np.concatenate(ms), np.concatenate(promoted)
-        print(f"{name}: {statistics.median(rates):.2f} frames/s (passes {[round(r, 2) for r in rates]}), "
-              f"median ms tracking frame {np.median(ms[~promoted]):.2f}, promotion frame "
-              f"{np.median(ms[promoted]):.2f} ({int(promoted.sum()) // SLAM_PASSES} promotions a pass)")
     return launches
 
 
@@ -1261,7 +1302,6 @@ def device_profile(fn, calls):
     time of every kernel, copy and set over the wall time, which the
     profiler inflates; wall ms a call; {device op name: ms a call}; the
     number of device ops)."""
-    from torch.autograd import DeviceType
     from torch.profiler import ProfilerActivity, profile
 
     torch.cuda.synchronize()
@@ -1272,12 +1312,10 @@ def device_profile(fn, calls):
         torch.cuda.synchronize()
         wall_us = (time.perf_counter() - t0) * 1e6
     busy, ops, by_name = 0.0, 0, {}
-    for e in prof.events():
-        if e.device_type == DeviceType.CUDA:
-            us = e.time_range.end - e.time_range.start
-            busy += us
-            ops += 1
-            by_name[e.name] = by_name.get(e.name, 0.0) + us
+    for name, us in device_events(prof):
+        busy += us
+        ops += 1
+        by_name[name] = by_name.get(name, 0.0) + us
     return busy / wall_us, wall_us / 1e3 / calls, {k: v / 1e3 / calls for k, v in by_name.items()}, ops
 
 
@@ -1619,45 +1657,14 @@ def run_cuboid_modes(device):
     return launches
 
 
-def tracking_scene():
-    """tracking_bench.py's scene: the 640x480 camera at fx 384, the three
-    cuboids of CUBOID_SET with their templates (density 6 mm), and the
-    300-frame camera_trajectory rendered once (frames in parallel, seed =
-    frame index): (camera, templates (3, Nt, 3), masks, depths, gts)."""
-    from perception_tpu_torch.bench.tracking_scene import CUBOID_SET, camera_trajectory, render_depth_cuboids
-    from perception_tpu_torch.geometry.camera import PinholeCamera
-    from perception_tpu_torch.io.templates import cuboid_template
-
-    w, h = 640, 480
-    fx = 384.0 * w / 640.0
-    camera = PinholeCamera.from_K([fx, 0, w / 2, 0, fx, h / 2, 0, 0, 1], width=w, height=h)
-    tmpls = [cuboid_template(*dims, density=0.006) for dims, _ in CUBOID_SET]
-    nt = max(len(t) for t in tmpls)
-    templates, tmasks = np.zeros((len(tmpls), nt, 3), np.float32), np.zeros((len(tmpls), nt), bool)
-    for k, t in enumerate(tmpls):
-        templates[k, :len(t)], tmasks[k, :len(t)] = t, True
-    traj = camera_trajectory(TRACK_FRAMES)
-    with ThreadPoolExecutor(8) as pool:
-        frames = list(pool.map(lambda i: render_depth_cuboids(camera, traj[i], seed=i), range(TRACK_FRAMES)))
-    return camera, templates, tmasks, np.stack([d for d, _ in frames]), np.stack([np.stack(g) for _, g in frames])
-
-
-def tracking_config():
-    """tracking_bench.py's TrackingConfig."""
-    from perception_tpu_torch.models.object_tracking import TrackingConfig
-    from perception_tpu_torch.models.objects import ObjectConfig
-
-    det = ObjectConfig(table_z_cut=0.9, z_limits=(0.0, 0.9), x_limits=(-0.35, 0.35), voxel_size=0.005,
-                       cluster_min_size=40, cluster_capacity=1024, offplane_capacity=2048, work_capacity=24576)
-    return TrackingConfig(detection=det, max_tracks=3, warm_icp_iterations=24)
-
-
 def run_tracker(device):
-    """The streaming tracker through ``track_step_from_depth`` over the
-    300-frame sweep: frames/s, median and p90 error of latched slots,
-    latched and warm shares, gated; the card against the CPU over the first
-    frames on the same triplets; one host read of ``steady`` a frame.
-    Returns the K1 launches of the counted pass."""
+    """The streaming tracker through ``track_step_from_depth`` on the
+    300-frame sweep's first TRACK_CHECK_FRAMES frames: the card against the CPU on the same
+    triplets, one host read of ``steady`` a frame, stage ms and the busy
+    share. Its 300-frame run, gated, is the benchmark's tracker row
+    (``run_bench``)."""
+    from perception_tpu_torch.bench import tracking_bench
+    from perception_tpu_torch.bench.tracking_scene import camera_trajectory, render_depth_cuboids
     from perception_tpu_torch.models import object_tracking
     from perception_tpu_torch.models.cuboid import decimate
     from perception_tpu_torch.models.object_tracking import init_tracks, slot_template_normals, track_step_from_depth
@@ -1666,11 +1673,13 @@ def run_tracker(device):
     from perception_tpu_torch.ops.ransac import _sample_indices
 
     t0 = time.perf_counter()
-    camera, templates_np, tmasks_np, depths_np, gts = tracking_scene()
-    print(f"tracking scene: {TRACK_FRAMES} frames {camera.width}x{camera.height}, fx {camera.fx:.1f}, "
-          f"rendered in {time.perf_counter() - t0:.1f} s")
-    cfg = tracking_config()
-    K = cfg.max_tracks
+    camera = tracking_bench.bench_camera()
+    templates_np, tmasks_np = tracking_bench.bench_templates()
+    traj = camera_trajectory(TRACK_FRAMES)[:TRACK_CHECK_FRAMES]
+    depths_np = np.stack([render_depth_cuboids(camera, T, seed=i)[0] for i, T in enumerate(traj)])
+    print(f"tracking scene: the first {TRACK_CHECK_FRAMES} of {TRACK_FRAMES} frames {camera.width}x{camera.height}, "
+          f"fx {camera.fx:.1f}, rendered in {time.perf_counter() - t0:.1f} s")
+    cfg = tracking_bench.bench_config()
     on = {}
     for dev in ("cpu", device):
         t, m = torch.from_numpy(templates_np).to(dev), torch.from_numpy(tmasks_np).to(dev)
@@ -1681,34 +1690,6 @@ def run_tracker(device):
     def step(slots, depth, dev=device, **kw):
         t, m, tn = on[str(dev)]
         return track_step_from_depth(slots, depth, camera, t, m, kw.pop("gen", gen), cfg, template_normals=tn, **kw)
-
-    step(init_tracks(cfg, device), depths[0])  # warm-up
-    torch.cuda.synchronize()
-    # The path, counted and timed.
-    reset_launches()
-    slots, hist = init_tracks(cfg, device), []
-    t0 = time.perf_counter()
-    for i in range(TRACK_FRAMES):
-        slots, diag = step(slots, depths[i])
-        hist.append((slots.pose, slots.latched, diag.used_warm))
-    torch.cuda.synchronize()
-    fps = TRACK_FRAMES / (time.perf_counter() - t0)
-    counts = read_launches()
-    print(f"tracker path: {TRACK_FRAMES} x track_step_from_depth: launches {counts}")
-    require(counts == {"ransac_score": TRACK_FRAMES, "icp_gn": 0, "voxelhash_query": 0},
-            f"expected {TRACK_FRAMES} K1 launches (one a frame) and no other kernel")
-    pose = torch.stack([h[0] for h in hist]).cpu().numpy()
-    latched = torch.stack([h[1] for h in hist]).cpu().numpy()
-    warm = torch.stack([h[2] for h in hist]).cpu().numpy()
-    require(np.isfinite(pose).all(), "tracker: non-finite pose")
-    errs = np.linalg.norm(pose[..., :3, 3] - gts[..., :3, 3], axis=-1)[latched]
-    med, p90 = float(np.median(errs) * 100), float(np.percentile(errs, 90) * 100)
-    latched_pct = 100.0 * latched.mean()
-    warm_pct = 100.0 * warm.sum() / max(latched.sum(), 1)
-    print(f"tracker: {fps:.2f} frames/s, median error {med:.3f} cm, p90 {p90:.3f} cm, latched {latched_pct:.2f}%, "
-          f"warm {warm_pct:.2f}% ({K} objects, {camera.width}x{camera.height})")
-    require(latched_pct >= 95.0, "tracker: latched under 95%")
-    require(med <= 2.0 and p90 <= 5.0, "tracker: median error over 2 cm or p90 over 5 cm")
 
     # The card against the port's CPU path, with the same RANSAC triplets.
     slots = {"cpu": init_tracks(cfg, "cpu"), str(device): init_tracks(cfg, device)}
@@ -1738,7 +1719,7 @@ def run_tracker(device):
             slots, _ = step(slots, depths[i])
         require_syncs(f"tracker frame {i}", sites, {steady: 1, eigh: 1})
 
-    frames = itertools.cycle(range(TRACK_SYNC_FRAMES, TRACK_FRAMES))
+    frames = itertools.cycle(range(TRACK_SYNC_FRAMES, TRACK_CHECK_FRAMES))
     holder = [slots]
 
     def one():
@@ -1749,7 +1730,6 @@ def run_tracker(device):
     busy, wall, by_name, _ = device_profile(one, 10)
     print(f"tracker profile (torch.profiler, 10 steady frames): device busy share {busy:.4f}, wall {wall:.2f} ms "
           f"a frame, top device ms a frame {top_ms(by_name)}")
-    return counts["ransac_score"]
 
 
 def posenet_ops(net, x):
@@ -2306,11 +2286,11 @@ def run_facade(device):
 
     1. ``benchmarks/facade_bench.py``'s setting: the MPI_15 pose fixture at
        128x128, 4 face slots, hands of the top 2 people, on FACADE_STAGED
-       pre-staged 256x256 three-face frames, FACADE_FRAMES frames a pass:
-       frames/s (host clock ending in a synchronize, median of 3 passes),
-       faces tracked (3), stage ms, the busy share, host syncs of one
-       ``emplace_and_pop`` (stated: none) and the card's first datum
-       against the CPU's.
+       pre-staged 256x256 three-face frames: faces tracked (3) and carried
+       over FACADE_FRAMES frames, stage ms, the busy share, host syncs of
+       one ``emplace_and_pop`` (stated: none) and the card's first datum
+       against the CPU's. Its timed pass is the benchmark's facade row
+       (``run_bench``).
     2. Full width: BODY_25 PoseNet at 368x368 (``init_posenet``'s seeded
        weights), 4 face slots and hands of 2 people on 480x640 frames with
        three faces (fx scaled as the wrapper scales it): ms a frame by CUDA
@@ -2343,17 +2323,13 @@ def run_facade(device):
     require_syncs("facade emplace_and_pop (no sinks)", sites, {})
 
     eng = engines[device]
-    i = itertools.count(2)
-    fps, runs = frames_per_s(
-        lambda: [eng.emplace_and_pop(staged[k % FACADE_STAGED], frame_index=k)
-                 for k in itertools.islice(i, FACADE_FRAMES)], FACADE_FRAMES, warm=False)
+    for k in range(2, FACADE_FRAMES + 2):
+        last = eng.emplace_and_pop(staged[k % FACADE_STAGED], frame_index=k)
     counts = read_launches()
-    last = eng.emplace_and_pop(staged[0])
     print(f"facade path launches of K1-K4: {counts}")
     require(not any(counts.values()), "a K1-K4 kernel ran on the facade path")
     print(f"facade at facade_bench.py's setting (MPI_15 fixture 128x128, {MULTI_SLOTS} face slots, hands of 2 people, "
-          f"256x256 frames, {FACADE_FRAMES} a pass): {fps:.2f} frames/s (passes {[round(r, 2) for r in runs]}), "
-          f"faces tracked {int(last.faces['mask'].sum())}")
+          f"256x256 frames): faces tracked {int(last.faces['mask'].sum())} after {FACADE_FRAMES + 2} frames")
     require(int(last.faces["mask"].sum()) == 3, "facade: the faces were not carried")
     print(f"facade 256x256 stage ms (synchronized): {facade_stage_ms(eng, staged[0])}")
     busy, wall, by_name, n_ops = device_profile(lambda: eng.emplace_and_pop(staged[0]), 10)
@@ -3620,8 +3596,6 @@ def cli_call(argv):
     """``perception_tpu_torch.cli.main(argv)`` with the kernels' launch
     counts set to 0 just before and read just after, its stdout captured:
     (its JSON lines, seconds to the end of its device work, launches)."""
-    import io
-
     from perception_tpu_torch import cli
 
     out = io.StringIO()
@@ -3662,8 +3636,8 @@ def run_cli(device, scene):
       the CLI's answer and the reference's winning cluster (the CLI's
       JSON has no cluster id); one K1 launch a call.
     - ``odometry --tum`` and ``slam --tum``: the SLAM scene's sweep
-      written by ``bench/tum_sequence.py`` at 640x480 (CLI_ODO_FRAMES and
-      CLI_SLAM_FRAMES frames), the files read frame by frame as the JAX
+      written by ``bench/tum_sequence.py`` at 640x480 (its first
+      CLI_FRAMES frames), the files read frame by frame as the JAX
       CLI reads them: ATE (aligned, as the CLI reports it) at most 2 cm,
       the ``--out`` trajectory read back by ``read_trajectory`` with the
       sequence's timestamps, its poses within CLI_POSE_TOL of
@@ -3764,9 +3738,9 @@ def run_cli(device, scene):
         cam, gt, grays, depths_s = scene
         seq_dir = tmp / "sweep"
         t0 = time.perf_counter()
-        write_tum_sequence(seq_dir, cam, list(gt), render=lambda i: (grays[i], depths_s[i]))
+        write_tum_sequence(seq_dir, cam, list(gt[:CLI_FRAMES]), render=lambda i: (grays[i], depths_s[i]))
         n_files = len(list(seq_dir.glob("*/*.png")))
-        print(f"TUM sweep: {len(gt)} frames at {cam.width}x{cam.height} written in {time.perf_counter() - t0:.1f} s "
+        print(f"TUM sweep: {CLI_FRAMES} frames at {cam.width}x{cam.height} written in {time.perf_counter() - t0:.1f} s "
               f"({n_files} PNGs, {sum(f.stat().st_size for f in seq_dir.rglob('*')) / 2**20:.1f} MiB)")
         seq = TumSequence(seq_dir)
         blobs = {kind: [(seq_dir / rows[1][0]).read_bytes() for rows in lst]
@@ -3818,7 +3792,7 @@ def run_cli(device, scene):
 
         rates = {}
         camera_s = sequence_camera(seq_dir)
-        for cmd, frames in (("odometry", CLI_ODO_FRAMES), ("slam", CLI_SLAM_FRAMES)):
+        for cmd, frames in (("odometry", CLI_FRAMES), ("slam", CLI_FRAMES)):
             # In memory first, on the decoded arrays (it also warms the path for the timed CLI run).
             mem = list(seq.frames(0, frames))
             d = torch.from_numpy(np.stack([np.nan_to_num(f.depth) for f in mem])).to(device)
@@ -3874,6 +3848,94 @@ def run_cli(device, scene):
     return launches
 
 
+def bench_launches():
+    """The kernel launches one ``cli bench`` makes, worked out from its loops
+    (``bench/headline.py``, ``tracking_bench``, ``nn_crossover``), keyed as
+    ``read_launch_shapes`` keys them. K1 once a cuboid call at N=8192,
+    K=1024 (B=1: the warm-up call, then a warm pass and REPEATS timed
+    passes of TIMED_FRAMES frames; B > 1: a first block, then the same
+    passes of max(2, TIMED_FRAMES // B) blocks) and once a tracker step at
+    N=24576 (a warm-up step and TRACKING_FRAMES timed); K3+K4 once a hash
+    query (at each NN size, keyed (queries, map points): warm and cold each
+    ``bench_ms``'s 2 + 10 calls and one agreement call); K2 none, since
+    ``bench.py``'s SLAM configurations run odometry's op graph and map
+    mode's shortlist."""
+    from perception_tpu_torch.bench import headline
+
+    k1 = {}
+    for b in headline.BATCHES:
+        per_pass = headline.TIMED_FRAMES if b == 1 else max(2, headline.TIMED_FRAMES // b)
+        k1[(b, 8192, 1024)] = 1 + per_pass * (1 + headline.REPEATS)
+    k1[(1, 24576, 1024)] = 1 + headline.TRACKING_FRAMES
+    k3 = {tuple(size): 2 * (2 + 10 + 1) for size in headline.NN_SIZES}
+    return {"ransac_score": k1, "icp_gn": {}, "voxelhash_query": k3}
+
+
+def run_bench(device):
+    """The port's headline benchmark through its user's entry point,
+    ``cli.main(["bench"])``, in this process at ``bench.py``'s full sizes.
+    Prints its JSON line and holds it, and its launches by shape, read just
+    after the call, to ``bench_launches``; returns those launches."""
+    from perception_tpu_torch.bench import headline
+
+    torch.cuda.reset_peak_memory_stats(device)
+    lines, seconds, counts = cli_call(["bench"])
+    shapes = read_launch_shapes()
+    peak = torch.cuda.max_memory_allocated(device)
+    require(bool(lines), "cli bench printed no JSON line")
+    line = lines[-1]
+    print(json.dumps(line))
+    print(f"cli bench: {seconds:.1f} s, peak device memory {peak / 2**30:.3f} GiB (max_memory_allocated), "
+          f"launches {counts}")
+    extra = line["extra"]
+    require(line["metric"] == headline.METRIC and line["unit"] == "frames/s", "cli bench: wrong metric")
+    require(not any(k.endswith("_error") for k in extra), "cli bench: an *_error key")
+
+    fps, spread = extra["fps_vs_batch"], extra["fps_spread_pct_vs_batch"]
+    batches = {str(b) for b in headline.BATCHES}
+    require(set(fps) == set(spread) == batches, f"cli bench: fps_vs_batch {fps}, spreads {spread}")
+    # fps_vs_batch is rounded to 2 decimals (which can tie), the value to 3.
+    best = str(extra["headline_batch"])
+    require(fps[best] == max(fps.values()) and abs(line["value"] - fps[best]) <= 0.0055,
+            "cli bench: the value is not the best batch's")
+    runs = extra["cpu_baseline_runs"]
+    med = statistics.median(runs)
+    require(len(runs) == 3 and med > 0, "cli bench: not 3 CPU-baseline passes")
+    # Both sides are rounded to 3 decimals: the value, the runs and the ratio.
+    tol = 0.0005 + (0.0005 + line["vs_baseline"] * 0.0005) / med
+    require(abs(line["vs_baseline"] - line["value"] / med) <= tol, "cli bench: vs_baseline is not value / CPU")
+
+    # SLAM: run_slam_paths' bounds on the same three configurations.
+    mm = extra["map_mode"]
+    print(f"cli bench SLAM: ATE {extra['ate_cm']} / {extra['ate_cm_no_ba']} / {mm['ate_cm']} cm (BA, no BA, map "
+          f"32768), loop closures {extra['loop_closures']}, BA runs {extra['ba_runs']}, keyframes "
+          f"{extra['keyframes']} / {mm['keyframes']}")
+    require(max(extra["ate_cm"], extra["ate_cm_no_ba"], mm["ate_cm"]) <= 2.0, "cli bench: SLAM ATE over 2 cm")
+    require(extra["ba_runs"] > 0 and extra["loop_closures"] > 0, "cli bench: no BA run or no loop closure")
+    require(extra["slam_frames"] == headline.SLAM_FRAMES and mm["map_budget"] == 32768, "cli bench: SLAM sizes")
+
+    tr, fb = extra["objects_tracking"], extra["facade"]
+    require(tr["frames"] == headline.TRACKING_FRAMES and tr["latched_pct"] >= 95.0,
+            "cli bench: tracker latched under 95%")
+    require(tr["median_err_cm"] <= 2.0 and tr["p90_err_cm"] <= 5.0,
+            "cli bench: tracker median error over 2 cm or p90 over 5 cm")
+    require(fb["faces_tracked"] == 3 and fb["frames"] == headline.FACADE_FRAMES,
+            "cli bench: the facade did not track 3 faces")
+
+    nn = extra["nn_crossover"]
+    require([(r["nq"], r["m"]) for r in nn] == [tuple(s) for s in headline.NN_SIZES], "cli bench: NN sizes")
+    require(all(r["agree_pct"] == r["agree_cold_pct"] == 100.0 for r in nn),
+            "cli bench: the hash disagrees with the KD-tree")
+
+    # K3+K4's launches by NN size: the kernel shape (padded queries, table rows) query() gives each size.
+    size_of = {(args[1].shape[0], args[0].shape[0]): nq_m for nq_m, (args, _) in crossover_cases(device)}
+    shapes["voxelhash_query"] = {size_of.get(key, key): n for key, n in shapes["voxelhash_query"].items()}
+    want = bench_launches()
+    print(f"cli bench launches by shape: {shapes}, expected {want}")
+    require(shapes == want, f"cli bench: kernel launches by shape {shapes}, expected {want}")
+    return shapes
+
+
 def json_times(t):
     """A kernel's times for the JSON line: ``ms`` the eager wrapper call,
     ``device_ms`` its device time by graph replay. No single PyTorch call
@@ -3881,6 +3943,14 @@ def json_times(t):
     system), so there is no library time."""
     return {"ms": t["ms"], "device_ms": t["device_ms"], "plain_ms": t["plain_ms"],
             "bound_ms": t["bound_ms"], "bound_by": t["bound_by"], "library_ms": None}
+
+
+def phase(fn, *args):
+    """Run one phase of the smoke run and print its wall time."""
+    t0 = time.perf_counter()
+    out = fn(*args)
+    print(f"phase {fn.__name__}: {time.perf_counter() - t0:.1f} s", flush=True)
+    return out
 
 
 def main() -> int:
@@ -3915,39 +3985,36 @@ def main() -> int:
         print(f"{lib.relative_to(build.BUILD_DIR.parents[1])}:")
         print(lib.with_name(lib.name + ".log").read_text().strip())
 
-    k1_err = check_kernel(device)
-    k2_err = check_k2(device)
-    k3_err = check_k3(device)
+    k1_err = phase(check_kernel, device)
+    k2_err = phase(check_k2, device)
+    k3_err = phase(check_k3, device)
 
-    (cuboid_b1_launches, cuboid_b8_launches), one, batch = run_slice(device)
+    cuboid_b1_launches, cuboid_b8_launches = phase(run_slice, device)
     t0 = time.perf_counter()
     scene = slam_scene()
     print(f"SLAM scene: {SLAM_FRAMES} frames {scene[0].width}x{scene[0].height}, fx {scene[0].fx:.1f}, "
           f"rendered in {time.perf_counter() - t0:.1f} s")
-    odo_launches, _ = run_odometry_paths(device, scene)
-    slam_launches = run_slam_paths(device, scene)
-    cli_launches = run_cli(device, scene)
+    odo_launches, _ = phase(run_odometry_paths, device, scene)
+    slam_launches = phase(run_slam_paths, device, scene)
+    cli_launches = phase(run_cli, device, scene)
     del scene
-    mode_launches = run_cuboid_modes(device)
-    obj_launches, eraser = run_objects(device, obj_scene, eraser_cpu)
-    track_launches = run_tracker(device)
-    run_pose(device)
-    run_face(device)
-    run_facade(device)
-    run_person_tracker(device)
-    leaf_plane_launches, leaf_surface_launches = run_leaf_nodes(device)
-    run_3d_chain(device)
-    train_flops = run_training(device)
-    run_multichip(train_flops)
-    example_k1 = run_examples(device)
+    mode_launches = phase(run_cuboid_modes, device)
+    obj_launches, eraser = phase(run_objects, device, obj_scene, eraser_cpu)
+    phase(run_tracker, device)
+    phase(run_pose, device)
+    phase(run_face, device)
+    phase(run_facade, device)
+    phase(run_person_tracker, device)
+    leaf_plane_launches, leaf_surface_launches = phase(run_leaf_nodes, device)
+    phase(run_3d_chain, device)
+    train_flops = phase(run_training, device)
+    phase(run_multichip, train_flops)
+    example_k1 = phase(run_examples, device)
+    bench = phase(run_bench, device)
 
-    k1_times = time_kernel(device)
-    k2_times = time_k2(device)
-    k3_times = time_k3(device)
-    fps1, runs1 = frames_per_s(lambda: [one(i) for i in range(FRAMES)], FRAMES)
-    fps8, runs8 = frames_per_s(batch, FRAMES)
-    print(f"cuboid end to end: B=1 {fps1:.2f} frames/s (passes {[round(r, 2) for r in runs1]}), "
-          f"B={FRAMES} {fps8:.2f} frames/s (passes {[round(r, 2) for r in runs8]})")
+    k1_times = phase(time_kernel, device)
+    k2_times = phase(time_k2, device)
+    k3_times = phase(time_k3, device)
 
     eraser_spread(**eraser)
     print(f"run: {time.perf_counter() - t_run:.1f} s")
@@ -3963,15 +4030,19 @@ def main() -> int:
             **json_times(k1_times[bn]),
             "floor_ms": k1_times[bn]["floor_ms"],
         } for shape, launches, bn in (
-            ("B=1 N=8192 K=1024 (cuboid, one frame a call; with cli cuboid's, the leaf nodes' ground planes "
-             "and example 01's)",
-             cuboid_b1_launches + cli_launches["cuboid"] + leaf_plane_launches + example_k1[(1, 8192, 1024)],
-             (1, 8192)),
-            ("B=8 N=8192 K=1024 (cuboid batches: default, cc, p2p; with pcl_parity's one B=2 call)",
-             cuboid_b8_launches + mode_launches, (8, 8192)),
+            ("B=1 N=8192 K=1024 (cuboid, one frame a call; with cli cuboid's, the leaf nodes' ground planes, "
+             "example 01's and cli bench's batch-1 frames)",
+             cuboid_b1_launches + cli_launches["cuboid"] + leaf_plane_launches + example_k1[(1, 8192, 1024)]
+             + bench["ransac_score"][(1, 8192, 1024)], (1, 8192)),
+            ("B=2 N=8192 K=1024 (cli bench's batch-2 blocks)", bench["ransac_score"][(2, 8192, 1024)], (2, 8192)),
+            ("B=4 N=8192 K=1024 (cli bench's batch-4 blocks)", bench["ransac_score"][(4, 8192, 1024)], (4, 8192)),
+            ("B=8 N=8192 K=1024 (cuboid batches: default, cc, p2p; with pcl_parity's one B=2 call and cli "
+             "bench's batch-8 blocks)", cuboid_b8_launches + mode_launches + bench["ransac_score"][(8, 8192, 1024)],
+             (8, 8192)),
             ("B=1 N=32768 K=1024 (detect_object; with cli objects' and example 02's)",
              obj_launches + cli_launches["objects"] + example_k1[(1, 32768, 1024)], (1, 32768)),
-            ("B=1 N=24576 K=1024 (tracker)", track_launches, (1, 24576)),
+            ("B=1 N=24576 K=1024 (tracker: cli bench's tracker row)", bench["ransac_score"][(1, 24576, 1024)],
+             (1, 24576)),
             ("B=1 N=8192 K=512 (surface_frame)", leaf_surface_launches, K1_SURFACE),
             ("B=1 N=32768 K=256 (example 09: detect_object at 256 hypotheses)", example_k1[(1, 32768, 256)],
              (1, 32768, 256)),
@@ -3983,19 +4054,26 @@ def main() -> int:
             "route": "cuda",
             "source": "perception_tpu_torch/csrc/icp_gn.cu",
             "replaces": "perception_tpu/ops/pallas/icp_gn.py:223",
-            "launches": odo_launches["icp_gn"] + slam_launches["icp_gn"],
+            "launches": odo_launches["icp_gn"] + slam_launches["icp_gn"]
+            + sum(bench["icp_gn"].values()),
             "max_abs_err": k2_err,
             **json_times(k2_times[(4096, 8192)]),
         },
-        {
+        *({
             "name": "voxelhash_query",
+            "shape": shape,
             "route": "cuda",
             "source": "perception_tpu_torch/csrc/voxelhash_query.cu",
             "replaces": "perception_tpu/ops/voxelhash.py:285 (K3), perception_tpu/ops/voxelhash.py:201 (K4)",
-            "launches": odo_launches["voxelhash_query"] + slam_launches["voxelhash_query"],
+            "launches": launches,
             "max_abs_err": k3_err,
-            **json_times(k3_times[(32768, 2048)]),
-        },
+            **json_times(k3_times[key]),
+        } for shape, launches, key in (
+            ("2048 q, 33792 rows (odometry and SLAM map mode on the hash)",
+             odo_launches["voxelhash_query"] + slam_launches["voxelhash_query"], (32768, 2048)),
+            *((f"{nq} q, {m} map points (cli bench's NN crossover)", n, ("crossover", nq, m))
+              for (nq, m), n in bench["voxelhash_query"].items()),
+        )),
     ]}))
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu",

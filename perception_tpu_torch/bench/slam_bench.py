@@ -23,6 +23,7 @@ Run: ``python -m perception_tpu_torch.bench.slam_bench [--cpu]``
 from __future__ import annotations
 
 import argparse
+import functools
 import time
 
 import numpy as np
@@ -61,6 +62,22 @@ def bench_camera(width: int = 640, height: int = 480):
                                 width=width, height=height)
 
 
+@functools.lru_cache(maxsize=1)
+def rendered_sequence(frames: int, width: int, height: int):
+    """The sweep at ``width`` x ``height``: (camera, gt (frames, 4, 4)
+    float64, grays, depths (frames, H, W) float32), rendered once and kept
+    for the next call with the same sizes, so the benchmark's three
+    configurations share one render (``benchmarks/slam_bench.py``'s
+    ``rendered_sequence``). The arrays are shared: callers copy before
+    writing."""
+    from perception_tpu_torch.bench.slam_scene import render_sequence, sweep_trajectory
+
+    camera = bench_camera(width, height)
+    gt = np.stack(sweep_trajectory(n=frames))
+    grays, depths = render_sequence(camera, gt)
+    return camera, gt, np.stack(grays), np.stack(depths)
+
+
 def _sync(device: torch.device) -> None:
     if device.type == "cuda":
         torch.cuda.synchronize(device)
@@ -76,17 +93,14 @@ def run(
     device="cuda",
     **odom_overrides,
 ) -> dict:
-    from perception_tpu_torch.bench.slam_scene import render_sequence, sweep_trajectory
     from perception_tpu_torch.models.slam.system import slam_init, slam_step
     from perception_tpu_torch.utils.metrics import ate
 
     device = torch.device(device)
-    camera = bench_camera(width, height)
+    camera, gt, grays, depths = rendered_sequence(frames, width, height)
     cfg = bench_config(enable_ba, map_budget, map_nn, **odom_overrides)
-    gt = sweep_trajectory(n=frames)
-    grays, depths = render_sequence(camera, gt)
-    dj = torch.from_numpy(np.stack(depths)).to(device)
-    gj = torch.from_numpy(np.stack(grays)).to(device)
+    dj = torch.from_numpy(depths).to(device)
+    gj = torch.from_numpy(grays).to(device)
 
     # Warm up with one step so the timed loop is steady-state.
     state = slam_init(camera, dj[0], gj[0], cfg)
@@ -105,7 +119,7 @@ def run(
     dt = time.perf_counter() - t0
 
     est = torch.stack(poses).cpu().numpy().astype(np.float64)
-    res = ate(est, np.stack(gt), align=False)
+    res = ate(est, gt, align=False)
     loop_edges = int(((state.edges.weight == 2.0) & state.edges.mask).sum())
     return {
         "ate_cm": float(res.rmse * 100.0),

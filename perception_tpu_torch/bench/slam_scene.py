@@ -7,6 +7,8 @@ analytic ray-plane cast with world-anchored texture.
 
 from __future__ import annotations
 
+from concurrent.futures import ThreadPoolExecutor
+
 import numpy as np
 import torch
 
@@ -68,10 +70,9 @@ def sweep_trajectory(n=300, x_amp=0.5, y_amp=0.15, yaw_amp=0.08, cycles=2.0):
 
 
 def render_sequence(camera, trajectory, noise=0.001):
-    """Render (grays, depths) lists for a pose list (seed = frame index)."""
-    grays, depths = [], []
-    for i, T in enumerate(trajectory):
-        g, d = render_textured_room(camera, T, noise=noise, seed=i)
-        grays.append(g)
-        depths.append(d)
-    return grays, depths
+    """Render (grays, depths) lists for a pose list (seed = frame index),
+    frames in parallel."""
+    with ThreadPoolExecutor(8) as pool:
+        images = list(pool.map(lambda i: render_textured_room(camera, trajectory[i], noise=noise, seed=i),
+                               range(len(trajectory))))
+    return [g for g, _ in images], [d for _, d in images]

@@ -8,6 +8,7 @@ defaults and JSON keys:
   python -m perception_tpu_torch.cli odometry --tum DIR [--out traj.txt]
   python -m perception_tpu_torch.cli slam     [--tum DIR] [--out traj.txt]
   python -m perception_tpu_torch.cli pose     [--image f.png] [--out-json people.json]
+  python -m perception_tpu_torch.cli bench    [--cpu]
 
 Each command prints JSON lines. Everything runs on the CUDA card unless
 ``--cpu`` is given; with no card and no ``--cpu`` the command stops with
@@ -18,8 +19,11 @@ so results agree with the JAX CLI's, not bit for bit. Images are read by
 the port's PNG codec (``io/png.py``); ``pose --image`` in another format
 imports ``cv2`` on use. Templates are read by the native PCD reader
 (``runtime.read_pcd_native``), TUM sequences frame by frame through
-``io/tum.py``. The JAX CLI's ``bench``
-runs the JAX package's benchmark and has no counterpart here yet.
+``io/tum.py``. ``bench`` runs the port's headline benchmark
+(``bench/headline.py``, the counterpart of the root ``bench.py``) and
+prints its one line last; its only flag is ``--cpu``. ``main`` switches
+TF32 off for matmuls and cuDNN's convolutions before any command runs, so
+the card computes in float32 as the JAX package does.
 """
 
 from __future__ import annotations
@@ -288,7 +292,15 @@ def cmd_pose(args) -> None:
             save_people_json(args.out_json, ppl.keypoints.cpu().numpy(), mask)
 
 
+def cmd_bench(args) -> None:
+    from perception_tpu_torch.bench import headline
+
+    headline.main(_device(args))
+
+
 def main(argv=None) -> None:
+    torch.backends.cuda.matmul.allow_tf32 = False
+    torch.backends.cudnn.allow_tf32 = False
     p = argparse.ArgumentParser(prog="perception_tpu_torch")
     sub = p.add_subparsers(dest="cmd", required=True)
 
@@ -334,6 +346,10 @@ def main(argv=None) -> None:
     po.add_argument("--image", default=None, help="RGB image (default: synthetic scene)")
     po.add_argument("--out-json", default=None, help="write OpenPose-style people JSON")
     po.set_defaults(fn=cmd_pose)
+
+    b = sub.add_parser("bench", help="run the headline benchmark")
+    b.add_argument("--cpu", action="store_true", help="run on the CPU (default: the CUDA card)")
+    b.set_defaults(fn=cmd_bench)
 
     args = p.parse_args(argv)
     args.fn(args)

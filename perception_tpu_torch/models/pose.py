@@ -159,7 +159,8 @@ class PoseNet(nn.Module):
     TF32 on the card (``torch.backends.cudnn.allow_tf32``), which keeps
     about three decimal digits; callers switch it off
     (``torch.backends.cudnn.allow_tf32 = False``) for float32 results, as
-    ``chip_smoke.py`` and the card tests do.
+    ``chip_smoke.py``, the card tests, ``cli.main`` and the examples'
+    ``_common.device`` do.
     """
 
     def __init__(self, num_parts: int = 25, num_limbs: int = 24, num_stages: int = 3,

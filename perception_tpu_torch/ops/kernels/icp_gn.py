@@ -25,6 +25,7 @@ shapes and the card's SM count alone, never from device data.
 
 from __future__ import annotations
 
+import collections
 import ctypes
 import functools
 from typing import NamedTuple
@@ -190,7 +191,8 @@ def gn_system_packed(src8, tgtd, tn, Ts, max_correspondence_distance: float,
     """Fused GN systems from packed operands: (R, 8, 8) [and (R, 2) stats].
 
     CPU tensors take the plain version; CUDA tensors launch the kernel
-    (``gn_system_packed.launches`` counts those calls) or raise."""
+    (``gn_system_packed.launches`` counts those calls, and
+    ``gn_system_packed.launches_by_shape`` counts them by (R, Np, Mp)) or raise."""
     if tgtd.shape[0] == 0:
         raise ValueError("the target is empty")
     if src8.device.type == "cpu":
@@ -220,10 +222,12 @@ def gn_system_packed(src8, tgtd, tn, Ts, max_correspondence_distance: float,
         if err:
             raise RuntimeError(f"icp_gn kernel launch failed: CUDA error {err}")
         gn_system_packed.launches += 1
+        gn_system_packed.launches_by_shape[(R, Np, Mp)] += 1
     return (M, stats) if return_stats else M
 
 
 gn_system_packed.launches = 0
+gn_system_packed.launches_by_shape = collections.Counter()
 
 
 def gn_system(src_t, src_mask, target, target_normals, target_mask,

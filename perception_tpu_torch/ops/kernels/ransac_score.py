@@ -14,6 +14,7 @@ shapes and the SM count alone.
 
 from __future__ import annotations
 
+import collections
 import ctypes
 import functools
 from typing import NamedTuple
@@ -110,7 +111,8 @@ def ransac_score(
     f32 = [normal | d] -> (B, K) int32.
 
     CPU tensors take the plain version; CUDA tensors launch the kernel
-    (``ransac_score.launches`` counts those launches) or raise."""
+    (``ransac_score.launches`` counts those launches, and
+    ``ransac_score.launches_by_shape`` counts them by (B, N, K)) or raise."""
     if points.device.type == "cpu":
         return ransac_score_reference(points, mask, hyp, threshold)
     if points.device.type != "cuda":
@@ -130,7 +132,9 @@ def ransac_score(
     if err:
         raise RuntimeError(f"ransac_score kernel launch failed: CUDA error {err}")
     ransac_score.launches += 1
+    ransac_score.launches_by_shape[(B, N, K)] += 1
     return out
 
 
 ransac_score.launches = 0
+ransac_score.launches_by_shape = collections.Counter()

@@ -22,6 +22,7 @@ shapes and the card's SM count alone, never from device data.
 
 from __future__ import annotations
 
+import collections
 import ctypes
 import functools
 from typing import NamedTuple
@@ -131,7 +132,9 @@ def voxelhash_query(table, queries, start, nchunk, tile: int, R: int, rblk: int 
     ``R`` caps the window (the caller's ``nchunk`` never exceeds
     ``R // rblk``; the kernel, like the plain version, scans at most R
     rows a tile). CPU tensors take the plain version; CUDA tensors
-    launch the kernel (``voxelhash_query.launches`` counts them) or raise."""
+    launch the kernel (``voxelhash_query.launches`` counts them, and
+    ``voxelhash_query.launches_by_shape`` counts them by (padded queries,
+    table rows)) or raise."""
     if queries.device.type == "cpu":
         return voxelhash_query_reference(table, queries, start, nchunk, tile, R, rblk)
     if queries.device.type != "cuda":
@@ -153,7 +156,9 @@ def voxelhash_query(table, queries, start, nchunk, tile: int, R: int, rblk: int 
     if err:
         raise RuntimeError(f"voxelhash_query kernel launch failed: CUDA error {err}")
     voxelhash_query.launches += 1
+    voxelhash_query.launches_by_shape[(nqp, table.shape[0])] += 1
     return idx, d2
 
 
 voxelhash_query.launches = 0
+voxelhash_query.launches_by_shape = collections.Counter()

@@ -20,8 +20,12 @@ sorted key.
   port, uint32 in JAX) is written as uint32 and read back by viewing the
   bits. So a ``SlamState`` or ``OdometryState`` saved by either package
   loads into the other.
-* ``save_torch`` / ``load_torch`` stand for ``save_orbax`` /
-  ``load_orbax``: a ``torch.save`` file of the leaves (no orbax here);
+* ``save_orbax`` / ``load_orbax`` behave as the JAX functions do where
+  orbax is absent: an npz at ``str(path) + ".npz"`` through ``save_npz`` /
+  ``load_npz``, so such a file passes between the packages. orbax needs
+  JAX, so the port cannot import it: an orbax checkpoint directory written
+  by the JAX package is not readable here.
+* ``save_torch`` / ``load_torch``: a ``torch.save`` file of the leaves;
   zero-size leaves round-trip.
 * ``install_snapshot_handler``: SIGINT/SIGTERM -> snapshot, then the
   signal's default action.
@@ -149,15 +153,25 @@ def load_npz(path, like: Any) -> Any:
     return _unflatten(like, iter(out))
 
 
+def save_orbax(path, state: Any) -> None:
+    """The JAX ``save_orbax`` without orbax: ``save_npz`` to ``<path>.npz``."""
+    save_npz(str(path) + ".npz", state)
+
+
+def load_orbax(path, like: Any) -> Any:
+    """The JAX ``load_orbax`` without orbax: ``load_npz`` of ``<path>.npz``."""
+    return load_npz(str(path) + ".npz", like)
+
+
 def save_torch(path, state: Any) -> None:
-    """The counterpart of ``save_orbax``: the state's leaves, in flatten
-    order, as one ``torch.save`` file at ``path``."""
+    """The state's leaves, in flatten order, as one ``torch.save`` file at
+    ``path``."""
     torch.save([leaf for _, leaf in _leaves(state)], str(path))
 
 
 def load_torch(path, like: Any) -> Any:
-    """The counterpart of ``load_orbax``: a file of ``save_torch`` in
-    ``like``'s structure, each tensor on ``like``'s device for it."""
+    """A file of ``save_torch`` in ``like``'s structure, each tensor on
+    ``like``'s device for it."""
     saved = torch.load(str(path), map_location="cpu", weights_only=True)
     refs = [leaf for _, leaf in _leaves(like)]
     if len(saved) != len(refs):

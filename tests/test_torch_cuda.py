@@ -7,7 +7,8 @@ the card is, which has no JAX; the tests' conftest imports jax, so run it
 there with ``--noconftest`` (see README.md).
 
 Tolerances: the kernel's counts equal the plain version's exactly (both
-round each multiply and add separately), at K1's five path shapes and at
+round each multiply and add separately), at K1's seven path shapes (B=2
+and B=4 at N=8192 are ``cli bench``'s blocks) and at
 K=1023, B=3 and N=777, on random points and on ``chip_smoke``'s edge
 inputs (points exactly at +-tau, one ulp past, -0.0, NaN and +-inf, valid
 and masked), one launch a call; every (point, hypothesis) pair of a launch
@@ -17,7 +18,8 @@ within 1 mm, fitness within rtol 5e-2 — CUDA's ``index_add_`` adds with
 atomics, so a voxel centroid may move by an ulp and one point may cross
 the RANSAC threshold. The fused GN system (K2): equal gate counts, M and
 the gated d2 sum within rtol/atol 1e-4 (float sums in another order). The
-voxel-hash query (K3+K4): bit-identical (both round each operation).
+voxel-hash query (K3+K4): bit-identical (both round each operation),
+also at ``cli bench``'s NN crossover sizes on the crossover's clouds.
 Both kernels split their scan over blocks (K2 the target axis, K3+K4 each
 tile's window); the tests place equal minima in different splits or
 pieces, where the lower index must win, tie -0.0 with +0.0, and repeat
@@ -120,21 +122,23 @@ def random_case(seed, b, n, k):
     return pts, mask, hyp
 
 
+K1_BENCH_SHAPES = [(2, 8192, 1024), (4, 8192, 1024)]  # cli bench's batch-2 and batch-4 blocks
 K1_SHAPES = [(1, 8192, 1024), (8, 8192, 1024), (1, 32768, 1024), (1, 24576, 1024), (1, 8192, 512),
-             (3, 777, 100), (1, 8192, 1023), (2, 777, 100), (3, 1, 1)]
+             (3, 777, 100), (1, 8192, 1023), (2, 777, 100), (3, 1, 1), *K1_BENCH_SHAPES]
 
 
 @pytest.mark.parametrize("b,n,k", K1_SHAPES)
 def test_cuda_kernel_matches_plain_version(cuda_device, b, n, k):
     pts, mask, hyp = (torch.from_numpy(a).to(cuda_device) for a in random_case(b, b, n, k))
-    before = ransac_score.launches
+    before, shape_before = ransac_score.launches, ransac_score.launches_by_shape[(b, n, k)]
     got = ransac_score(pts, mask, hyp, 0.05)
     torch.cuda.synchronize()
     assert ransac_score.launches == before + 1
+    assert ransac_score.launches_by_shape[(b, n, k)] == shape_before + 1
     assert torch.equal(got, ransac_score_reference(pts, mask, hyp, 0.05))
 
 
-@pytest.mark.parametrize("b,n,k", K1_SHAPES[:7])
+@pytest.mark.parametrize("b,n,k", K1_SHAPES[:7] + K1_BENCH_SHAPES)
 def test_cuda_kernel_matches_plain_version_on_edge_inputs(cuda_device, b, n, k):
     from chip_smoke import TAU, k1_edge_inputs
 
@@ -353,6 +357,26 @@ def test_cuda_voxelhash_query_matches_plain_version(cuda_device, m, nq, order):
     ridx, rd2 = voxelhash_query_reference(*args)
     assert torch.equal(idx, ridx) and torch.equal(d2, rd2)
     assert (float(overflow) > 0) == (order == "caller")
+
+
+@pytest.mark.parametrize("size", [(4096, 8192), (16384, 131072), (307200, 32768)])
+def test_cuda_voxelhash_query_at_the_bench_crossover_sizes(cuda_device, size):
+    """The kernel at cli bench's NN crossover sizes, on the crossover's own
+    clouds and in its query order (``chip_smoke.crossover_cases``): one
+    launch a call, counted at its (padded queries, table rows),
+    bit-identical to the plain version; the table of 131072 points is past
+    49152 rows (the 128-row alignment regime)."""
+    from chip_smoke import crossover_cases
+
+    (args, _), = [case for nq_m, case in crossover_cases(cuda_device) if nq_m == size]
+    shape = (args[1].shape[0], args[0].shape[0])
+    before, shape_before = voxelhash_query.launches, voxelhash_query.launches_by_shape[shape]
+    idx, d2 = voxelhash_query(*args)
+    torch.cuda.synchronize()
+    assert voxelhash_query.launches == before + 1
+    assert voxelhash_query.launches_by_shape[shape] == shape_before + 1
+    ridx, rd2 = voxelhash_query_reference(*args)
+    assert torch.equal(idx, ridx) and torch.equal(d2, rd2)
 
 
 @pytest.mark.parametrize("mode", ["fused", "hash"])

@@ -5,8 +5,9 @@ H100's 132 SMs passed in.
 
 K1's plan splits each frame's points over blocks of 128 hypotheses: the
 tests check that its blocks score every (point, hypothesis) pair exactly
-once at the four path shapes (B=1 and 8 at N=8192, N=32768, N=24576, all
-at K=1024, and the surface frame's B=1 N=8192 K=512) and at (3, 777, 100)
+once at the path shapes (B=1, 2, 4 and 8 at N=8192, the B=2 and B=4 of
+``cli bench``'s blocks, N=32768, N=24576, all at K=1024, and the surface
+frame's B=1 N=8192 K=512) and at (3, 777, 100)
 and (1, 8192, 1023), and that each K=1024 path shape puts at least 8 warps
 on each SM. At K=512 the plan's floor, one chunk a split, gives 128
 blocks: 7.76 warps an SM, the shape ``chip_smoke.py`` exempts.
@@ -16,7 +17,9 @@ tile's window of table rows. The tests check that every target row or
 window row is covered exactly once by splits or pieces that ascend, that
 the grid has at least two blocks per SM at the paths' shapes (odometry's
 4096 x 8192, the SLAM bench's 2048 x 4096, the SLAM map hash at 2048
-queries on 32768 points). The kernels' merge of splits and pieces is
+queries on 32768 points); K3+K4's windows are also covered once at
+``cli bench``'s NN crossover shapes past 49152 rows and at 307200 queries.
+The kernels' merge of splits and pieces is
 tested on the card (``tests/test_torch_cuda.py``).
 """
 
@@ -34,7 +37,8 @@ SMS = 132  # an H100 SXM
 torch.set_num_threads(2)
 
 
-K1_PATH_SHAPES = [(1, 8192, 1024), (8, 8192, 1024), (1, 32768, 1024), (1, 24576, 1024)]
+K1_PATH_SHAPES = [(1, 8192, 1024), (8, 8192, 1024), (1, 32768, 1024), (1, 24576, 1024),
+                  (2, 8192, 1024), (4, 8192, 1024)]
 
 
 def k1_tiles(plan, B, N, K):
@@ -146,6 +150,8 @@ def k3_pieces(plan, R):
     (65536, 4096, "sorted"),    # above 49152 rows
     (32768, 1000, "caller"),    # unaligned query count, incoherent order
     (4000, 300, "sorted"),      # a small map: the pieces are halved
+    (131072, 16384, "sorted"),  # cli bench's NN crossover: 132096 rows
+    (32768, 307200, "sorted"),  # cli bench's NN crossover: a 640x480 frame of queries, 512-query tiles
 ])
 def test_k3_plan_covers_every_window_row_once(m, nq, order):
     table, queries, start, nchunk, tile, R, rblk = query_args(m, nq, order)
