@@ -22,8 +22,14 @@ set to 0 just before it and read just after:
 - SLAM odometry at 640x480 through ``run_odometry`` over 40 frames of the
   textured-room sweep, under four configurations (keyframe mode with the
   op graph and with K2; map mode at map_budget 32768 with the shortlist
-  and with the voxel hash): ATE, overlap, exact launch counts, and the
-  card against the port's CPU path over the first 5 frames;
+  and with the voxel hash): ATE, overlap, exact launch counts, the card
+  against the port's CPU path over the first 5 frames (K2 and both map
+  engines), and the shortlist's first build from the same state equal to
+  the CPU's; map mode's frames/s; then ``bench/odometry_bench.run`` at its
+  full sizes (its 10-frame room sweep, keyframe mode at 4096 x 8192 and
+  8192 x 32768 on the op graph and on K2; frames/s, ms a frame and the
+  fused speedup): K2 exactly 410 launches at each shape, counted by shape,
+  and the two modes' last poses within K2's tolerance (1e-4);
 - the keyframe SLAM system at 640x480 through ``run_slam`` over all 300
   frames of the sweep (``benchmarks/slam_bench.py``'s settings), with BA
   and without on K2, and in map mode at map_budget 32768 on the voxel
@@ -39,13 +45,15 @@ set to 0 just before it and read just after:
   ground truth, the card against the CPU), and ``CuboidConfig.pcl_parity()``
   on the first frames, timed;
 - the detection service through ``detect_object`` in
-  ``benchmarks/objects_bench.py``'s setting (the 640x480 clutter scene, the
+  ``bench/objects_bench.py``'s setting (the 640x480 clutter scene, the
   four captured class templates and a plate that matches nothing): success
   and chamfer error per class, the plate rejected, the card against the
   CPU on the same triplets, the eraser 20 times on the card (every call
   the same pose) and 20 on the CPU in a worker process beside the run
   (the spread of its chamfer and of the card-CPU translation), the host
-  syncs held to the stated count, ms per call;
+  syncs held to the stated count; ms a call per class by
+  ``objects_bench.run`` (one K1 launch a call, 24, counted by shape) and
+  of the plate;
 - the streaming tracker through ``track_step_from_depth`` in
   ``benchmarks/tracking_bench.py``'s setting (640x480, three cuboids): the
   card against the CPU over the first frames, one host read of ``steady``
@@ -59,12 +67,13 @@ set to 0 just before it and read just after:
   scenes (mean landmark error under 3 px in 7 of 8), and the facade's
   pose -> hand chain on one frame, each on the card against the CPU and
   with no host sync; ``PoseNet()`` at full width (BODY_25, 3 stages) at
-  368x368 (``benchmarks/pose_bench.py``'s setting) with seeded weights:
+  368x368 (``bench/pose_bench.py``'s setting) with seeded weights:
   maps and the decode of the card's maps on the card against the CPU, one
-  480x640 frame through the antialiased downsample; ``extract_people`` ms
-  a frame at B=1 and B=8, the CNN alone against its bound (f32 operations
-  at 67 TFLOP/s), ``resize_and_merge`` and ``nms_heatmap`` at the
-  reference's stage shapes, the decode's stages, the device busy share;
+  480x640 frame through the antialiased downsample; ``pose_bench.run`` at
+  its full sizes (``extract_people`` ms a frame at B=1 and B=8,
+  ``resize_and_merge`` and ``nms_heatmap`` at the reference's stage
+  shapes), the CNN alone against its bound (f32 operations at 67
+  TFLOP/s), the decode's stages, the device busy share;
 - the face family, which runs none of the kernels either: the trained
   face fixture's chain from pixels (detector -> crop -> landmarks ->
   head-pose PnP -> gaze -> AUs) on 10 seeded 128x128 scenes with
@@ -121,7 +130,7 @@ set to 0 just before it and read just after:
   with and without the native read-ahead.
 
 - the training path, which runs none of the kernels either (its
-  convolutions and their gradients are cuDNN's, f32, TF32 off): example
+  convolutions and their gradients are cuDNN's, in float32): example
   06's MPI_15 PoseNet (``init_posenet``) at 368x368, B=8, on one fixed
   ``make_batch`` batch (up to 4 people a scene) made on the card: one SGD
   step against the CPU's from the same weights and batch (loss within
@@ -204,6 +213,10 @@ times the same calls alone. In the SLAM phase, torch.profiler over the
 first frames of keyframe+BA K2 and map 32768 hash gives the device busy
 share and K2's and K3+K4's device time per frame.
 
+Every phase runs under PyTorch's default TF32 flags (cuDNN's on): the
+package keeps its convolutions and matmul sums in float32 itself
+(``_tensor.fp32``), and the card-against-CPU checks hold it to that.
+
 Prints the card, each check and the times, the run's wall time; then a
 JSON line of the kernels; and last ``{"ok": true, "device": {...}}``. Exits non-zero,
 without that line, when there is no card or any check fails.
@@ -228,6 +241,8 @@ from concurrent.futures import ThreadPoolExecutor
 import numpy as np
 import torch
 
+from perception_tpu_torch.bench import objects_bench, odometry_bench, pose_bench
+
 FRAMES = 8
 K1_TIMED = ((1, 8192), (2, 8192), (4, 8192), (8, 8192), (1, 32768), (1, 24576))  # the path shapes (B, N) at K=1024
 K1_SURFACE = (1, 8192, 512)  # (B, N, K): estimate_surface_frame's three fits on the work cloud
@@ -246,7 +261,7 @@ KERNELS = ("ransac_score", "icp_gn", "voxelhash_query")
 K2_SHAPES = [  # (R, N, M, all source points masked); the first three are odometry's
     (1, 4096, 8192, False),    # default OdometryConfig
     (1, 2048, 4096, False),    # the SLAM bench's keyframe mode
-    (1, 8192, 32768, False),   # benchmarks/odometry_bench.py's large shape
+    (1, *odometry_bench.BUDGETS[1], False),  # odometry_bench's large budget pair
     (3, 217, 100, False),      # unaligned
     (1, 4096, 8192, True),
 ]
@@ -263,8 +278,7 @@ CPU_FRAMES = 5
 SLAM_FRAMES = 300        # the SLAM bench's sweep_trajectory(n=300)
 SLAM_CPU_FRAMES = 12     # card against CPU (and host syncs): two promotions, each with a BA run
 PROFILE_FRAMES = 30      # slam_step calls under torch.profiler (keyframe+BA K2, map hash)
-OBJ_CLASSES = ("eraser", "screwdriver", "clamp", "marker")
-OBJ_TIMED_CALLS = 3      # timed detect_object calls per class, after a warm-up
+OBJ_CLASSES = objects_bench.CLASSES
 OBJ_CPU_CLASSES = ("eraser", "marker")  # card against CPU: the CPU takes 10-120 s a call
 # The JAX package's answers in this setting (objects_reference.py, on the
 # CPU): (success, winning cluster, size difference, chamfer cm). Its
@@ -314,8 +328,8 @@ POSE_SCORE_TOL = 1e-4    # person scores (mean limb scores), likewise
 HAND_TOL = 1e-3          # px: hand landmarks, card against CPU
 CHAIN_TOL = 1e-2         # px: pose -> hand landmarks, card against CPU (boxes move with the keypoints)
 WIDE_MAP_RTOL = 1e-4     # full-width maps, card against CPU: max abs diff over the maps' max magnitude
-WIDE_HW = (368, 368)     # pose_bench.py's net resolution, the reference's own
-WIDE_BATCH = 8           # pose_bench.py's batch
+WIDE_HW = pose_bench.NET_HW  # the reference's own net resolution
+WIDE_BATCH = pose_bench.BATCH
 TIMED_REPS = 3           # timed runs (median, with the spread), each of TIMED_CALLS calls after a warm-up
 TIMED_CALLS = 5
 PEAK_F32_OPS = 67e12     # H100 SXM, f32 outside the tensor cores (NVIDIA's data sheet)
@@ -956,11 +970,38 @@ def expected_launches(cfg, steps):
     }
 
 
+def state_to(state, device):
+    """A state of NamedTuples of tensors on ``device``."""
+    return type(state)(*(state_to(x, device) if isinstance(x, tuple) else x.to(device) for x in state))
+
+
+def first_shortlist(state, depth, camera, cfg):
+    """The candidate indices of the first shortlist build in one map-mode
+    ``odometry_step`` from ``state`` on ``depth`` (on their device)."""
+    from perception_tpu_torch.models.slam import odometry as odo
+
+    built, real = [], odo._build_shortlist
+
+    def spy(*args):
+        out = real(*args)
+        built.append(out[0])
+        return out
+
+    odo._build_shortlist = spy
+    try:
+        odo.odometry_step(state, depth, camera, cfg)
+    finally:
+        odo._build_shortlist = real
+    return built[0]
+
+
 def run_odometry_paths(device, scene):
     """Drive run_odometry at 640x480 over the scene's first ODO_FRAMES
-    frames under the four configurations and check each; returns (kernel
-    launches of the counted runs, frames/s)."""
-    from perception_tpu_torch.models.slam.odometry import run_odometry
+    frames under the four configurations and check each, then the odometry
+    benchmark (``bench/odometry_bench.run``), which times keyframe mode on
+    the op graph and on K2; returns (kernel launches of the counted runs,
+    the benchmark's K2 launches by shape, frames/s)."""
+    from perception_tpu_torch.models.slam.odometry import OdometryConfig, init_state, run_odometry
     from perception_tpu_torch.utils.metrics import ate
 
     camera, gt, _, depths_np = scene
@@ -990,19 +1031,51 @@ def run_odometry_paths(device, scene):
         require(float(overlap.min()) > 0.5, f"{name}: overlap at or under 0.5")
 
         # The card against the port's CPU path over the first frames.
-        if cfg.fused_gn == "on" or cfg.map_nn == "hash":
+        if cfg.fused_gn == "on" or cfg.map_budget > 0:
             cpu_poses, _ = run_odometry(camera, torch.from_numpy(depths_np[:CPU_FRAMES]), cfg)
             cpu = torch.stack(cpu_poses)
+            step = (cpu - est[:CPU_FRAMES]).abs().amax(dim=(1, 2))
             dt = float((cpu[:, :3, 3] - est[:CPU_FRAMES, :3, 3]).norm(dim=-1).max())
             dr = float((cpu[:, :3, :3] - est[:CPU_FRAMES, :3, :3]).abs().max())
             print(f"odometry [{name}] cuda vs cpu, first {CPU_FRAMES} frames: translation diff max "
-                  f"{dt * 1e3:.6f} mm, rotation entry diff max {dr:.3e}")
+                  f"{dt * 1e3:.6f} mm, rotation entry diff max {dr:.3e}, pose entry diff by frame "
+                  f"{[f'{float(d):.2e}' for d in step]}")
             require(dt <= 1e-3, f"{name}: CUDA and CPU poses differ by more than 1 mm")
+        if cfg.map_budget > 0 and cfg.map_nn == "auto":
+            # The shortlist from the same state and frame: its distances and
+            # top-k are formed in a fixed order, so the card picks the CPU's.
+            state = init_state(camera, torch.from_numpy(depths_np[0]), cfg)
+            got = first_shortlist(state_to(state, device), depths[1], camera, cfg).cpu()
+            want = first_shortlist(state, torch.from_numpy(depths_np[1]), camera, cfg)
+            rows = int((got != want).any(dim=1).sum())
+            print(f"odometry [{name}] first shortlist build, cuda vs cpu from the same state: {tuple(got.shape)} "
+                  f"candidates, rows that differ {rows}")
+            require(rows == 0, f"{name}: the card's shortlist differs from the CPU's")
 
+        if cfg.map_budget == 0:
+            continue  # keyframe mode is timed by the odometry benchmark below
         fps, runs = frames_per_s(lambda: run_odometry(camera, depths, cfg), ODO_FRAMES)
         rates[name] = fps
         print(f"odometry [{name}]: {fps:.2f} frames/s (passes {[round(r, 2) for r in runs]})")
-    return launches, rates
+
+    # Keyframe mode on the op graph and on K2 at the benchmark's two budget
+    # pairs (its own room sweep): K2 once a GN iteration, counted by shape;
+    # the two modes find the same neighbours, so their last poses agree.
+    reset_launches()
+    bench = odometry_bench.run(device=device)
+    torch.cuda.synchronize()
+    k2 = read_launch_shapes()["icp_gn"]
+    print(f"odometry_bench.run: {json.dumps({k: v for k, v in bench.items() if k != 'final_pose'})}; "
+          f"K2 launches by shape {k2}")
+    steps = (1 + odometry_bench.TIMED_FRAMES) * OdometryConfig().icp_iterations
+    want = {(1, p, k): steps for p, k in odometry_bench.BUDGETS}
+    require(k2 == want, f"odometry_bench: K2 launches {k2}, expected {want}")
+    for p, k in odometry_bench.BUDGETS:
+        off, on = (torch.tensor(bench["final_pose"][f"{p}x{k} {mode}"]) for mode in odometry_bench.MODES)
+        print(f"odometry_bench {p}x{k}: last pose, K2 against the op graph, max entry diff "
+              f"{float((on - off).abs().max()):.3e}")
+        require(torch.allclose(on, off, **K2_TOL), f"odometry_bench {p}x{k}: K2's pose differs from the op graph's")
+    return launches, k2, rates
 
 
 def frames_per_s(fn, frames, passes=3, warm=True):
@@ -1402,23 +1475,21 @@ def chamfer_cm(template, est, gt):
 
 
 def objects_scene():
-    """benchmarks/objects_bench.py's setting on the CPU: the full D435
-    camera at 640x480, the clutter scene at seed 3, ObjectConfig(
-    cluster_min_size=40, size_gate=250), the four captured class templates
-    and a 0.3 x 0.3 x 0.02 m plate that matches no object, and the RANSAC
-    triplets that the card and the CPU share."""
-    from perception_tpu_torch.bench.clutter_scene import captured_template, render_depth_clutter, standard_clutter_poses
-    from perception_tpu_torch.geometry.camera import PinholeCamera
+    """``bench/objects_bench``'s setting on the CPU (its ``scene`` and
+    ``bench_config``: the full D435 camera at 640x480, the clutter scene at
+    seed 3, ObjectConfig(cluster_min_size=40, size_gate=250)), its four
+    captured class templates and a 0.3 x 0.3 x 0.02 m plate that matches no
+    object, and the RANSAC triplets that the card and the CPU share."""
+    from perception_tpu_torch.bench.clutter_scene import captured_template
     from perception_tpu_torch.io.templates import box_surface_template
-    from perception_tpu_torch.models.objects import ObjectConfig, working_set
+    from perception_tpu_torch.models.objects import working_set
     from perception_tpu_torch.ops.ransac import _sample_indices
 
-    camera = PinholeCamera.d435_depth()
-    poses = standard_clutter_poses()
-    pts_cpu, mask_cpu = camera.backproject_depth(torch.from_numpy(render_depth_clutter(camera, poses, seed=3)))
+    camera, poses, depth = objects_bench.scene()
+    pts_cpu, mask_cpu = camera.backproject_depth(torch.from_numpy(depth))
     templates = {name: captured_template(name, camera) for name in OBJ_CLASSES}
     templates["plate"] = box_surface_template((0.3, 0.3, 0.02), 0.003)
-    cfg = ObjectConfig(cluster_min_size=40, size_gate=250)
+    cfg = objects_bench.bench_config()
     _, dm, _ = working_set(pts_cpu, mask_cpu, cfg)
     idx = _sample_indices(torch.Generator().manual_seed(11), dm, cfg.ransac_hypotheses)
     return dict(camera=camera, poses=poses, pts_cpu=pts_cpu, mask_cpu=mask_cpu, templates=templates, cfg=cfg, idx=idx)
@@ -1518,17 +1589,28 @@ def run_objects(device, scene, eraser_cpu):
         print(f"objects [{name}]: {n} ICP trips of {cfg.icp_max_iterations}")
         require_syncs(f"objects [{name}]", sites, {svd: 2 * n, done: reads, eigh: 1})
 
-    # ms per call per class: median of OBJ_TIMED_CALLS after a warm-up.
-    for name in templates:
-        runs = []
-        detect_object(pts, mask, *on_card[name], gen, cfg)
+    # ms a call per class: the benchmark's run (a warm-up and REPS timed
+    # calls a class, one K1 launch a call, counted by shape); the plate,
+    # which the benchmark does not run, timed here the same way.
+    reset_launches()
+    bench = objects_bench.run(device=device)
+    torch.cuda.synchronize()
+    bench_k1 = read_launch_shapes()["ransac_score"]
+    print(f"objects_bench.run: {json.dumps(bench)}; K1 launches by shape {bench_k1}")
+    want = len(OBJ_CLASSES) * (1 + objects_bench.REPS)
+    require(list(bench_k1.values()) == [want] and read_launches()["icp_gn"] == read_launches()["voxelhash_query"] == 0,
+            f"objects_bench: K1 launches {bench_k1}, expected {want} at one shape and no other kernel")
+    require(bench["classes"] == len(OBJ_CLASSES) and set(bench["per_class_ms"]) == set(OBJ_CLASSES),
+            "objects_bench: classes")
+    runs = []
+    detect_object(pts, mask, *on_card["plate"], gen, cfg)
+    torch.cuda.synchronize()
+    for _ in range(objects_bench.REPS):
+        t0 = time.perf_counter()
+        detect_object(pts, mask, *on_card["plate"], gen, cfg)
         torch.cuda.synchronize()
-        for _ in range(OBJ_TIMED_CALLS):
-            t0 = time.perf_counter()
-            detect_object(pts, mask, *on_card[name], gen, cfg)
-            torch.cuda.synchronize()
-            runs.append((time.perf_counter() - t0) * 1e3)
-        print(f"objects [{name}]: {statistics.median(runs):.2f} ms per call (calls {[round(r, 2) for r in runs]})")
+        runs.append((time.perf_counter() - t0) * 1e3)
+    print(f"objects [plate]: {statistics.median(runs):.2f} ms per call (calls {[round(r, 2) for r in runs]})")
     from perception_tpu_torch.models import objects
 
     for name in ("eraser", "clamp"):
@@ -1538,7 +1620,7 @@ def run_objects(device, scene, eraser_cpu):
     busy, wall, by_name, _ = device_profile(lambda: detect_object(pts, mask, *on_card["eraser"], gen, cfg), 2)
     print(f"objects [eraser] profile (torch.profiler, 2 calls): device busy share {busy:.4f}, wall {wall:.2f} ms "
           f"a call, top device ms a call {top_ms(by_name)}")
-    return counts["ransac_score"], pending
+    return counts["ransac_score"], sum(bench_k1.values()), pending
 
 
 def eraser_cpu_poses(host_in, idx, cfg, calls, threads):
@@ -1816,10 +1898,11 @@ def run_pose(device):
        seeded weights at 368x368: maps card against CPU, the decode of the
        card's maps on the card against the CPU, and one 480x640 frame
        (the antialiased downsample).
-    3. Times by CUDA events: ``extract_people`` a frame at B=1 and B=8,
-       the CNN alone, ``resize_and_merge`` (26, 46, 46) -> 368x368,
-       ``nms_heatmap`` (25, 368, 368) at K=32, the decode's stages, the
-       device busy share by torch.profiler, and the CNN's bound (f32
+    3. Times: ``bench/pose_bench.run`` at its full sizes (``extract_people``
+       a frame at B=1 and B=8, ``resize_and_merge`` (26, 46, 46) ->
+       368x368, ``nms_heatmap`` (25, 368, 368) at K=32; host clock), then
+       by CUDA events the CNN alone and the decode, the decode's stages,
+       the device busy share by torch.profiler, and the CNN's bound (f32
        operations at 67 TFLOP/s).
     """
     import copy
@@ -1827,7 +1910,6 @@ def run_pose(device):
     from perception_tpu_torch.models import hand_fixture as HF
     from perception_tpu_torch.models import pose, pose_fixture as PF
     from perception_tpu_torch.models.hand_data import hand_box
-    from perception_tpu_torch.ops.heatmap import nms_heatmap, resize_and_merge
     from perception_tpu_torch.ops.resize import resize
     from perception_tpu_torch.utils.keypoints import keep_top_n_people
 
@@ -1942,26 +2024,22 @@ def run_pose(device):
     bound_ms = ops / PEAK_F32_OPS * 1e3
     one, eight = frames[device][0], frames[device]
     nchw = {b: frames[device][:b].permute(0, 3, 1, 2).contiguous() for b in (1, WIDE_BATCH)}
-    with torch.no_grad():
-        t_e1 = event_ms(lambda: pose.extract_people(wide, one, topology, net_hw=WIDE_HW))
-        t_e8 = event_ms(lambda: pose.extract_people(wide, eight, topology, net_hw=WIDE_HW))
-        t_c1 = event_ms(lambda: wide(nchw[1]))
-        t_c8 = event_ms(lambda: wide(nchw[WIDE_BATCH]))
-    s8 = (WIDE_HW[0] // 8, WIDE_HW[1] // 8)
-    m46 = torch.from_numpy(np.random.default_rng(3).random((1, len(parts) + 1) + s8, dtype=np.float32)).to(device)
-    hms = torch.from_numpy(np.random.default_rng(4).random((len(parts),) + WIDE_HW, dtype=np.float32)).to(device)
-    t_rm = event_ms(lambda: resize_and_merge(m46, WIDE_HW), calls=20)
-    t_nms = event_ms(lambda: nms_heatmap(hms, threshold=0.1, max_peaks=32), calls=20)
+    # extract_people at B=1 and B=8, resize_and_merge and nms_heatmap at the
+    # reference's stage shapes: the benchmark's run, on its own weights.
+    bench = pose_bench.run(device=device)
+    print(f"pose_bench.run: {json.dumps(bench)}")
+    require(bench["net_hw"] == list(WIDE_HW) and bench["batch"] == WIDE_BATCH
+            and all(bench[k] > 0 for k in ("resize_merge_ms", "nms_ms", "extract_ms_batch1",
+                                           "extract_ms_per_frame_batch")), "pose_bench: sizes or times")
+    t_c1 = event_ms(lambda: wide(nchw[1]))
+    t_c8 = event_ms(lambda: wide(nchw[WIDE_BATCH]))
     t_dec = event_ms(lambda: pose.decode_people(*unit, pairs, num_parts=len(parts), paf_stride=8.0), calls=20)
     print(f"full width {topology} {WIDE_HW} times (CUDA events, median of {TIMED_REPS} runs of {TIMED_CALLS}):")
-    print(f"  extract_people B=1: {fmt_ms(t_e1)} a frame; B={WIDE_BATCH}: {fmt_ms(t_e8, WIDE_BATCH)} a frame "
-          f"({fmt_ms(t_e8)} a call)")
     print(f"  CNN alone B=1: {fmt_ms(t_c1)}; B={WIDE_BATCH}: {fmt_ms(t_c8, WIDE_BATCH)} a frame")
     print(f"  CNN bound: {ops / 1e9:.3f} GFLOP a frame (2 per multiply-add) at {PEAK_F32_OPS / 1e12:.0f} TFLOP/s "
           f"= {bound_ms:.4f} ms a frame; share of bound B=1 {bound_ms / t_c1[0]:.4f}, "
           f"B={WIDE_BATCH} {bound_ms * WIDE_BATCH / t_c8[0]:.4f}")
-    print(f"  resize_and_merge {tuple(m46.shape)} -> {WIDE_HW}: {fmt_ms(t_rm)}; nms_heatmap "
-          f"({len(parts)}, {WIDE_HW[0]}, {WIDE_HW[1]}) K=32: {fmt_ms(t_nms)}; decode_people (maps scaled to unit maximum): {fmt_ms(t_dec)}")
+    print(f"  decode_people (maps scaled to unit maximum): {fmt_ms(t_dec)}")
     stages = {"cnn": [(wide, "forward")], "merge": [(pose, "_merge")], "nms": [(pose, "nms_heatmap")],
               "paf scores": [(pose, "paf_pair_scores")], "greedy": [(pose, "greedy_match")],
               "assemble": [(pose, "assemble_people")]}
@@ -3967,8 +4045,9 @@ def main() -> int:
         check=True, capture_output=True, text=True, timeout=60,
     ).stdout.strip().splitlines()[0]
     print(card)
-    torch.backends.cuda.matmul.allow_tf32 = False
-    torch.backends.cudnn.allow_tf32 = False
+    # PyTorch's defaults (cuDNN in TF32): the package computes in float32 by
+    # its own guard (``_tensor.fp32``), which every phase's card-against-CPU
+    # check proves.
     print(f"torch {torch.__version__} cuda {torch.version.cuda} on {torch.cuda.get_device_name(0)}; "
           f"matmul.allow_tf32={torch.backends.cuda.matmul.allow_tf32} "
           f"cudnn.allow_tf32={torch.backends.cudnn.allow_tf32}")
@@ -3994,12 +4073,12 @@ def main() -> int:
     scene = slam_scene()
     print(f"SLAM scene: {SLAM_FRAMES} frames {scene[0].width}x{scene[0].height}, fx {scene[0].fx:.1f}, "
           f"rendered in {time.perf_counter() - t0:.1f} s")
-    odo_launches, _ = phase(run_odometry_paths, device, scene)
+    odo_launches, odo_bench_k2, _ = phase(run_odometry_paths, device, scene)
     slam_launches = phase(run_slam_paths, device, scene)
     cli_launches = phase(run_cli, device, scene)
     del scene
     mode_launches = phase(run_cuboid_modes, device)
-    obj_launches, eraser = phase(run_objects, device, obj_scene, eraser_cpu)
+    obj_launches, obj_bench_launches, eraser = phase(run_objects, device, obj_scene, eraser_cpu)
     phase(run_tracker, device)
     phase(run_pose, device)
     phase(run_face, device)
@@ -4039,8 +4118,9 @@ def main() -> int:
             ("B=8 N=8192 K=1024 (cuboid batches: default, cc, p2p; with pcl_parity's one B=2 call and cli "
              "bench's batch-8 blocks)", cuboid_b8_launches + mode_launches + bench["ransac_score"][(8, 8192, 1024)],
              (8, 8192)),
-            ("B=1 N=32768 K=1024 (detect_object; with cli objects' and example 02's)",
-             obj_launches + cli_launches["objects"] + example_k1[(1, 32768, 1024)], (1, 32768)),
+            ("B=1 N=32768 K=1024 (detect_object; with objects_bench's, cli objects' and example 02's)",
+             obj_launches + obj_bench_launches + cli_launches["objects"] + example_k1[(1, 32768, 1024)],
+             (1, 32768)),
             ("B=1 N=24576 K=1024 (tracker: cli bench's tracker row)", bench["ransac_score"][(1, 24576, 1024)],
              (1, 24576)),
             ("B=1 N=8192 K=512 (surface_frame)", leaf_surface_launches, K1_SURFACE),
@@ -4049,16 +4129,22 @@ def main() -> int:
             ("B=1 N=16384 K=1024 (example 12: the tracker at work_capacity 16384)", example_k1[(1, 16384, 1024)],
              (1, 16384, 1024)),
         )),
-        {
+        *({
             "name": "icp_gn",
+            "shape": shape,
             "route": "cuda",
             "source": "perception_tpu_torch/csrc/icp_gn.cu",
             "replaces": "perception_tpu/ops/pallas/icp_gn.py:223",
-            "launches": odo_launches["icp_gn"] + slam_launches["icp_gn"]
-            + sum(bench["icp_gn"].values()),
+            "launches": launches,
             "max_abs_err": k2_err,
-            **json_times(k2_times[(4096, 8192)]),
-        },
+            **json_times(k2_times[nm]),
+        } for shape, launches, nm in (
+            ("R=1 N=4096 M=8192 (odometry keyframe mode on K2; with odometry_bench's)",
+             odo_launches["icp_gn"] + odo_bench_k2[(1, 4096, 8192)], (4096, 8192)),
+            ("R=1 N=2048 M=4096 (SLAM keyframe mode on K2)", slam_launches["icp_gn"], (2048, 4096)),
+            ("R=1 N=8192 M=32768 (odometry_bench's large budget pair)", odo_bench_k2[(1, 8192, 32768)],
+             (8192, 32768)),
+        )),
         *({
             "name": "voxelhash_query",
             "shape": shape,

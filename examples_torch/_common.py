@@ -28,16 +28,12 @@ if str(ROOT) not in sys.path:
 
 def device(requested=None) -> torch.device:
     """The example's device: ``requested``, else the switch, else the card.
-    Raises where the card is asked for and torch sees none. Switches TF32
-    off for matmuls and cuDNN's convolutions, so the card computes in
-    float32 as the JAX examples do."""
+    Raises where the card is asked for and torch sees none."""
     dev = torch.device(requested or os.environ.get(DEVICE_ENV) or "cuda")
     if dev.type == "cuda" and not torch.cuda.is_available():
         raise RuntimeError(
             f"this example runs on a CUDA card and torch sees none; set {DEVICE_ENV}=cpu to run it on the CPU"
         )
-    torch.backends.cuda.matmul.allow_tf32 = False
-    torch.backends.cudnn.allow_tf32 = False
     return dev
 
 

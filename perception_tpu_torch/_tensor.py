@@ -2,6 +2,8 @@
 
 from __future__ import annotations
 
+import contextlib
+
 import torch
 
 
@@ -26,3 +28,20 @@ def consts(like: torch.Tensor, *values):
     """Each Python number as a ``const`` like ``like``; tensors pass through
     (intrinsics given either way)."""
     return tuple(v if isinstance(v, torch.Tensor) else const(float(v), like) for v in values)
+
+
+@contextlib.contextmanager
+def fp32():
+    """Full float32 inside the block: TF32 off for cuDNN's convolutions
+    and cuBLAS's matmuls, the caller's two settings restored on exit.
+    cuDNN defaults to TF32 on the card, which keeps about three decimal
+    digits; the JAX package computes in float32. Also a decorator
+    (``@fp32()``). ``torch.backends.cudnn.flags`` is not used: it also
+    resets ``benchmark`` and ``deterministic``."""
+    cudnn, matmul = torch.backends.cudnn, torch.backends.cuda.matmul
+    saved = cudnn.allow_tf32, matmul.allow_tf32
+    cudnn.allow_tf32 = matmul.allow_tf32 = False
+    try:
+        yield
+    finally:
+        cudnn.allow_tf32, matmul.allow_tf32 = saved

@@ -14,8 +14,9 @@ value        frames/s of the whole cuboid pipeline (decimate + backproject
              device, each B the median of ``REPEATS`` timed passes after a
              warm pass (host clock, ending in a synchronize on the card)
 vs_baseline  value / the measured CPU frames/s of
-             ``benchmarks/cpu_baseline.measure_cpu_fps`` (numpy + scipy's
-             cKDTree, the PCL-equivalent harness), imported as it is
+             ``bench/cpu_baseline.measure_cpu_fps`` (numpy + scipy's
+             cKDTree, the PCL-equivalent harness; a copy of
+             ``benchmarks/cpu_baseline.py``)
 extra        ``bench.py``'s keys: the CPU baseline's runs, the fps-vs-batch
              curve and its spreads, the SLAM rows (``bench/slam_bench.py``:
              keyframe mode with BA and without, map fusion at 32768), the
@@ -87,9 +88,8 @@ def run(timed_frames: int = TIMED_FRAMES, batches=BATCHES, repeats: int = REPEAT
         tracking_frames: int = TRACKING_FRAMES, facade_frames: int = FACADE_FRAMES, nn_sizes=NN_SIZES,
         device="cuda") -> dict:
     """The benchmark's line as a dict; the defaults are ``bench.py``'s."""
-    from benchmarks.cpu_baseline import measure_cpu_fps
-
     from perception_tpu_torch.bench import facade_bench, nn_crossover, slam_bench, tracking_bench
+    from perception_tpu_torch.bench.cpu_baseline import measure_cpu_fps
     from perception_tpu_torch.bench.scene import bench_frames, benchmark_template
     from perception_tpu_torch.geometry.camera import PinholeCamera
     from perception_tpu_torch.models.cuboid import (

@@ -57,3 +57,12 @@ def bench_ms(fn, *args, iters: int = 10, warmup: int = 2) -> float:
 def bench_ms_median(fn, *args, iters: int = 10, reps: int = 3) -> float:
     """Median of ``reps`` independent ``bench_ms`` runs."""
     return float(np.median([bench_ms(fn, *args, iters=iters) for _ in range(reps)]))
+
+
+def device_of(device) -> torch.device:
+    """``device`` as a ``torch.device``. Raises where the card is asked for
+    and torch sees none: a benchmark runs on the CPU only when asked."""
+    dev = torch.device(device)
+    if dev.type == "cuda" and not torch.cuda.is_available():
+        raise RuntimeError("no CUDA card is available; pass device='cpu' (--cpu) to run on the CPU")
+    return dev

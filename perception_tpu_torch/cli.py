@@ -21,9 +21,10 @@ imports ``cv2`` on use. Templates are read by the native PCD reader
 (``runtime.read_pcd_native``), TUM sequences frame by frame through
 ``io/tum.py``. ``bench`` runs the port's headline benchmark
 (``bench/headline.py``, the counterpart of the root ``bench.py``) and
-prints its one line last; its only flag is ``--cpu``. ``main`` switches
-TF32 off for matmuls and cuDNN's convolutions before any command runs, so
-the card computes in float32 as the JAX package does.
+prints its one line last; its only flag is ``--cpu``. The package
+computes in float32 whatever the process's TF32 settings
+(``_tensor.fp32()`` around its convolutions and matmul sums), so ``main``
+sets none.
 """
 
 from __future__ import annotations
@@ -299,8 +300,6 @@ def cmd_bench(args) -> None:
 
 
 def main(argv=None) -> None:
-    torch.backends.cuda.matmul.allow_tf32 = False
-    torch.backends.cudnn.allow_tf32 = False
     p = argparse.ArgumentParser(prog="perception_tpu_torch")
     sub = p.add_subparsers(dest="cmd", required=True)
 

@@ -27,7 +27,7 @@ import torch
 import torch.nn.functional as F
 from torch import nn
 
-from perception_tpu_torch._tensor import const, consts
+from perception_tpu_torch._tensor import const, consts, fp32
 from perception_tpu_torch.geometry import se3
 from perception_tpu_torch.ops.heatmap import nms_heatmap
 
@@ -108,6 +108,7 @@ class FaceLandmarkNet(nn.Module):
         ])
         self.head = nn.Conv2d(2 * w, num_landmarks, 1)
 
+    @fp32()
     def forward(self, x):
         c = self.convs
         for i in (0, 2):
@@ -141,6 +142,7 @@ def _project(T, X, fx, fy, cx, cy):
     return pc, z, pred
 
 
+@fp32()
 def head_pose_pnp(landmarks: torch.Tensor, lm_mask: torch.Tensor, fx, fy, cx, cy,
                   iterations: int = 10) -> Tuple[torch.Tensor, torch.Tensor]:
     """Landmarks (..., 70, 2) + mask (..., 70) -> head pose (camera <- head,
@@ -229,6 +231,7 @@ class ActionUnitHead(nn.Module):
         self.intensity = nn.Linear(hidden, len(AU_NAMES))
         self.presence = nn.Linear(hidden, len(AU_NAMES))
 
+    @fp32()
     def forward(self, landmarks_norm):
         x = F.relu(self.hidden(landmarks_norm.flatten(-2)))
         return 5.0 * torch.sigmoid(self.intensity(x)), self.presence(x)

@@ -25,6 +25,7 @@ import torch
 import torch.nn.functional as F
 from torch import nn
 
+from perception_tpu_torch._tensor import fp32
 from perception_tpu_torch.ops.heatmap import nms_heatmap
 from perception_tpu_torch.ops.image import bilinear_resize
 
@@ -174,6 +175,7 @@ class FaceDetectorNet(nn.Module):
         self.heat = nn.Conv2d(64, 1, 1)
         self.size = nn.Conv2d(64, 1, 1)
 
+    @fp32()
     def forward(self, x):
         for conv in self.convs:
             x = F.relu(_conv_same(conv, x))

@@ -26,7 +26,7 @@ import torch
 import torch.nn.functional as F
 from torch import nn
 
-from perception_tpu_torch._tensor import const
+from perception_tpu_torch._tensor import const, fp32
 from perception_tpu_torch.ops.heatmap import nms_heatmap
 from perception_tpu_torch.ops.paf import People, assemble_people, greedy_match, paf_pair_scores
 from perception_tpu_torch.ops.resize import resize
@@ -124,6 +124,7 @@ class ConvBlock(nn.Module):
         self.convs = nn.ModuleList(
             _conv3(in_channels if i == 0 else features, features) for i in range(layers))
 
+    @fp32()
     def forward(self, x):
         for conv in self.convs:
             x = F.relu(conv(x))
@@ -141,6 +142,7 @@ class Stage(nn.Module):
         self.paf = nn.Conv2d(width, paf_channels, 1)
         self.hm = nn.Conv2d(width, hm_channels, 1)
 
+    @fp32()
     def forward(self, x):
         for conv in self.convs:
             x = F.relu(conv(x))
@@ -157,10 +159,9 @@ class PoseNet(nn.Module):
 
     The JAX package runs in full float32. cuDNN's convolutions default to
     TF32 on the card (``torch.backends.cudnn.allow_tf32``), which keeps
-    about three decimal digits; callers switch it off
-    (``torch.backends.cudnn.allow_tf32 = False``) for float32 results, as
-    ``chip_smoke.py``, the card tests, ``cli.main`` and the examples'
-    ``_common.device`` do.
+    about three decimal digits, so each ``forward`` here runs under
+    ``_tensor.fp32()``: float32 whatever the caller's TF32 settings, which
+    it finds as it left them.
     """
 
     def __init__(self, num_parts: int = 25, num_limbs: int = 24, num_stages: int = 3,
@@ -177,6 +178,7 @@ class PoseNet(nn.Module):
             Stage(widths[-1] + (paf_c + hm_c if s else 0), paf_c, hm_c, stage_width, stage_depth)
             for s in range(num_stages))
 
+    @fp32()
     def forward(self, x):
         for block in self.backbone:  # 3 pools -> stride 8
             x = F.max_pool2d(block(x), 2)

@@ -15,8 +15,8 @@ What differs from the JAX package, and why:
 
 - Lookups by row index are row gathers (bit-identical to the JAX
   package's one-hot matmuls). Sums over observations or edges stay
-  one-hot matmuls: deterministic on the card with TF32 off, where
-  ``index_add_`` adds in atomic order.
+  one-hot matmuls: deterministic on the card, in float32 under
+  ``_tensor.fp32()``, where ``index_add_`` adds in atomic order.
 - BA's reduced camera system is solved as the JAX package solves it, by
   unpivoted Gauss-Jordan with a guarded pivot (``_gauss_solve``): in
   float32 the gauged system can be indefinite, and LU with partial
@@ -47,7 +47,7 @@ from typing import Callable, List, NamedTuple, Optional, Tuple
 import torch
 import torch.autograd.forward_ad as fwAD
 
-from perception_tpu_torch._tensor import const, consts
+from perception_tpu_torch._tensor import const, consts, fp32
 from perception_tpu_torch.geometry import se3
 from perception_tpu_torch.ops.pnp import huber_weight
 
@@ -225,6 +225,7 @@ def ba_schur_solve(Hpp, Hll, U, bp, bl, lam, M: int, L: int):
     return dxi, dX, seen
 
 
+@fp32()
 def bundle_adjust(
     problem: BAProblem,
     fx, fy, cx, cy,
@@ -317,6 +318,7 @@ def pose_graph_system(poses, edge_i, edge_j, Tm_inv, w):
     return pose_graph_system_oh(poses[edge_i.long()], poses[edge_j.long()], Tm_inv, w)
 
 
+@fp32()
 def optimize_pose_graph(
     graph: PoseGraph,
     iterations: int = 10,

@@ -25,9 +25,17 @@ JAX's is on the CPU), and the ``lax.cond`` that fuses the map on a
 promotion is a Python ``if`` on one host read of ``promote`` per frame,
 in map mode only. Nothing inside the Gauss-Newton iterations reads back
 to the host, and keyframe mode never does. The large products
-``torch.matmul`` computes are the brute-NN and shortlist distance
-products, which the JAX package also leaves to XLA; the other ``@`` are
-6x6 normal equations and 4x4 poses.
+``torch.matmul`` computes are the brute-NN distance products (keyframe
+mode, map mode's "brute"), which the JAX package also leaves to XLA; the
+other ``@`` are 6x6 normal equations and 4x4 poses. Map mode forms its
+warm start, posed points and the shortlist engine's distances (the
+shortlist and the brute polish) from explicit products added in a fixed
+order (``_relative``, ``_posed``, ``_shortlist_d2``), and orders the
+shortlist's ties by index (``_k_smallest``): from the same state the
+card and the CPU pick the same candidates and nearest points, where 4x4
+and K=3 matmuls round differently on each. The Gauss-Newton sums
+(``_gn_update``'s 6 x N products) still do, so whole runs part by
+rounding.
 """
 
 from __future__ import annotations
@@ -37,7 +45,7 @@ from typing import NamedTuple, Tuple
 
 import torch
 
-from perception_tpu_torch._tensor import const
+from perception_tpu_torch._tensor import const, fp32
 from perception_tpu_torch.geometry import se3
 from perception_tpu_torch.geometry.camera import PinholeCamera
 from perception_tpu_torch.ops import nn as _nn
@@ -51,6 +59,8 @@ from perception_tpu_torch.ops.points import (
     compact_with_attrs,
     voxel_downsample_with_attrs,
 )
+
+SHORTLIST_TILE = 4096  # map columns of the shortlist's distance matrix built at a time
 
 
 @dataclasses.dataclass(frozen=True)
@@ -247,18 +257,141 @@ def init_state(camera: PinholeCamera, depth0: torch.Tensor,
     )
 
 
+def _sq_norm(p: torch.Tensor) -> torch.Tensor:
+    """|p|^2 of (..., 3) rows: x, y and z squared and added left to right,
+    each operation rounded alone, so every device gives the same bits (a
+    ``torch.sum`` over the axis may pair the three otherwise)."""
+    return p[..., 0] * p[..., 0] + p[..., 1] * p[..., 1] + p[..., 2] * p[..., 2]
+
+
+def _posed(T: torch.Tensor, p: torch.Tensor) -> torch.Tensor:
+    """(N, 3) points under the (4, 4) pose ``T``: ``x R[:, 0] + y R[:, 1] +
+    z R[:, 2] + t`` added left to right, each operation rounded alone.
+    ``se3.transform_points`` is a K=3 ``torch.matmul``, which cuBLAS and the
+    CPU's BLAS round differently; map mode's discrete choices (the
+    shortlist, the nearest map point) see these coordinates."""
+    R, t = T[:3, :3], T[:3, 3]
+    return p[:, 0:1] * R[:, 0] + p[:, 1:2] * R[:, 1] + p[:, 2:3] * R[:, 2] + t
+
+
+def _relative(kf_pose: torch.Tensor, pose: torch.Tensor) -> torch.Tensor:
+    """``se3.inverse(kf_pose) @ pose``, the frame's warm start in the
+    keyframe's frame, each entry's products added left to right: a 4x4
+    matmul rounds otherwise on cuBLAS than on the CPU, and map mode's
+    choices see the ulp."""
+    Rt, t = kf_pose[:3, :3].T, kf_pose[:3, 3]
+    inv = se3.make_T(Rt, -(Rt[:, 0] * t[0] + Rt[:, 1] * t[1] + Rt[:, 2] * t[2]))
+    return inv[:, 0:1] * pose[0] + inv[:, 1:2] * pose[1] + inv[:, 2:3] * pose[2] + inv[:, 3:4] * pose[3]
+
+
+def _shortlist_d2(src_t: torch.Tensor, map_masked: torch.Tensor, map_sq: torch.Tensor,
+                  tile: int = SHORTLIST_TILE) -> torch.Tensor:
+    """The shortlist's (Ns, M) squared distances ``|s|^2 - 2 s.m + |m|^2``
+    (the form the ``nn_overflow`` tolerance is tuned to), ``map_sq`` from
+    ``_sq_norm``. ``s.m`` is three products added x, y, z left to right,
+    not a K=3 ``torch.matmul``: cuBLAS and the CPU's BLAS order and fuse
+    that product differently, and against |s|^2 of 4-25 m^2 an ulp decides
+    near-ties. Built a ``tile`` of map columns at a time, so the product
+    temporaries stay (Ns, tile)."""
+    s_sq = _sq_norm(src_t)[:, None]
+    x, y, z = src_t[:, 0:1], src_t[:, 1:2], src_t[:, 2:3]
+    d2 = src_t.new_empty((src_t.shape[0], map_masked.shape[0]))
+    for c in range(0, map_masked.shape[0], tile):
+        m = map_masked[c:c + tile]
+        dot = x * m[:, 0] + y * m[:, 1] + z * m[:, 2]
+        d2[:, c:c + tile] = s_sq - 2.0 * dot + map_sq[c:c + tile]
+    return d2
+
+
+def _k_smallest(d2: torch.Tensor, cols: torch.Tensor, k: int, m: int):
+    """The k smallest of each row of ``d2`` in (value, column) order:
+    (columns, values), ``cols`` each entry's column in [0, m). Exact, and
+    the same on every device: each entry's key is its float's order as an
+    integer (-0.0 equal to +0.0) times ``m`` plus its column, so no two
+    keys tie and ``torch.topk`` of the keys has one answer; the values
+    are decoded from the keys."""
+    bits = d2.view(torch.int32).to(torch.int64)
+    order = torch.where(bits < 0, -bits - 2**31, bits)
+    key = torch.topk(order * m + cols, k, dim=1, largest=False).values
+    col = torch.remainder(key, m)
+    order = torch.div(key - col, m, rounding_mode="floor")
+    bits = torch.where(order < 0, -order - 2**31, order)
+    return col, bits.to(torch.int32).view(torch.float32)
+
+
 def _nearest_k(d2: torch.Tensor, k: int):
     """The k smallest of each row of ``d2`` as (indices, values), in (value,
-    index) order: equal distances lower index first, as the JAX package's
-    ``approx_max_k`` gives them on the CPU (its exact fallback), so the
-    shortlist's first-minimum argmin takes the same copy. ``torch.topk``
-    promises no order among ties, so its k are re-sorted, by index and
-    then stably by value. A tie at the k-th place can still change which
-    points make the shortlist."""
-    vals, idx = torch.topk(d2, k, dim=1, largest=False)
-    idx, order = torch.sort(idx, dim=1)
-    vals, order = torch.sort(torch.gather(vals, 1, order), dim=1, stable=True)
-    return torch.gather(idx, 1, order), vals
+    index) order: equal distances lower index first, also at the k-th
+    place, as the JAX package's ``approx_max_k`` gives them on the CPU (its
+    exact fallback), so the shortlist holds the same points on every
+    device and the shortlist's first-minimum argmin takes the same copy."""
+    m = d2.shape[1]
+    return _k_smallest(d2, torch.arange(m, device=d2.device), k, m)
+
+
+def _shortlist_candidates(src_t, map_masked, map_sq, k: int, pad: int = 16):
+    """``_nearest_k`` of the shortlist's distance matrix at less cost: a
+    float ``torch.topk`` of k + ``pad``, whose candidates hold every
+    distance under the k-th and, unless a row's ties of the k-th run past
+    them, all its ties; the exact (value, index) order among those; and
+    for rows whose ties do run past (a masked source point at the sentinel
+    ties with many map points), the lowest-index ties from an int32
+    ``torch.topk`` over the whole row."""
+    d2 = _shortlist_d2(src_t, map_masked, map_sq)
+    m = d2.shape[1]
+    vals, idx = torch.topk(d2, min(k + pad, m), dim=1, largest=False)
+    col, v = _k_smallest(vals, idx, k, m)
+    kth = v[:, -1:]
+    cols = torch.arange(m, device=d2.device, dtype=torch.int32)
+    ties = torch.topk(torch.where(d2 == kth, cols, m), k, dim=1, largest=False).values.long()
+    # The candidates under the k-th distance and the first ties; pads
+    # (column m) at +inf are never among the k.
+    merged = torch.cat([torch.where(v < kth, col, m), ties], dim=1)
+    at = merged.clamp(max=m - 1)
+    val = torch.where(merged < m, torch.gather(d2, 1, at), torch.full_like(kth, float("inf")))
+    return torch.where(vals[:, -1:] == kth, _k_smallest(val, at, k, m)[0], col)
+
+
+def _build_shortlist(src_t, map_masked, map_sq, map_points, cfg: OdometryConfig):
+    """Each posed source point's ``map_nn_shortlist`` candidates: (indices
+    (Ns, k), their map points (Ns, k, 3))."""
+    k = cfg.map_nn_shortlist
+    if cfg.map_nn_recall >= 1.0:
+        # Exact segmented argmin: each of k map segments gives its winner.
+        d2_full = _shortlist_d2(src_t, map_masked, map_sq)
+        m = d2_full.shape[1]
+        d2p = torch.nn.functional.pad(d2_full, (0, (-m) % k), value=float("inf"))
+        seg = d2p.reshape(d2p.shape[0], k, -1)
+        ci = torch.argmin(seg, dim=2) + torch.arange(k, device=seg.device)[None] * seg.shape[2]
+        ci = torch.clamp(ci, max=m - 1)
+    else:
+        ci = _shortlist_candidates(src_t, map_masked, map_sq, k)
+    return ci, map_points[ci]
+
+
+def _map_nearest(src_t, map_masked, map_sq, tile: int = SHORTLIST_TILE):
+    """Brute NN over the masked map in the shortlist's distance form, a
+    ``tile`` of map rows at a time: (index, squared distance clamped at 0),
+    the first of equal minima (``nn.nearest_neighbor``'s answer, in the
+    fixed-order form)."""
+    best_d2 = best_idx = None
+    for c in range(0, map_masked.shape[0], tile):
+        d2, i = torch.min(_shortlist_d2(src_t, map_masked[c:c + tile], map_sq[c:c + tile], tile), dim=1)
+        if best_d2 is None:
+            best_d2, best_idx = d2, i
+        else:
+            take = d2 < best_d2
+            best_d2, best_idx = torch.where(take, d2, best_d2), torch.where(take, i + c, best_idx)
+    return best_idx, torch.clamp(best_d2, min=0.0)
+
+
+def _shortlist_nn(src_t, cand_idx, cand_pts):
+    """Each posed source point's nearest of its candidates: (map index,
+    squared distance), the first of equal minima."""
+    diff = src_t[:, None, :] - cand_pts
+    d2k = _sq_norm(diff)
+    j = torch.argmin(d2k, dim=1, keepdim=True)
+    return torch.gather(cand_idx, 1, j)[:, 0], torch.gather(d2k, 1, j)[:, 0]
 
 
 def _track_map(state: OdometryState, src_pts, src_mask, T0, cfg: OdometryConfig):
@@ -269,7 +402,7 @@ def _track_map(state: OdometryState, src_pts, src_mask, T0, cfg: OdometryConfig)
     zero = torch.zeros((), device=src_pts.device)
 
     def gn_iter(T, query_fn, pts, mask, map_pts_nn, nrm_sorted):
-        src_t = se3.transform_points(T, pts)
+        src_t = _posed(T, pts)
         idx, d2 = query_fn(src_t)
         gate = mask & (d2 <= r2)
         return _gn_update(T, src_t, map_pts_nn[idx], nrm_sorted[idx], gate, cfg)
@@ -279,33 +412,15 @@ def _track_map(state: OdometryState, src_pts, src_mask, T0, cfg: OdometryConfig)
         # argmins over its k candidates, and the exact brute polish ends
         # the solve (stats from its last iteration, one iteration stale).
         map_masked = apply_mask(state.map_points, state.map_mask)
-        map_sq = torch.sum(map_masked * map_masked, dim=1)
+        map_sq = _sq_norm(map_masked)
         stride = max(cfg.map_nn_coarse, 1)
         src_fast, mask_fast = src_pts[::stride], src_mask[::stride]
 
         def build_shortlist(T):
-            src_t = se3.transform_points(T, src_fast)
-            d2_full = (torch.sum(src_t * src_t, dim=1)[:, None]
-                       - 2.0 * (src_t @ map_masked.T) + map_sq[None, :])
-            k = cfg.map_nn_shortlist
-            if cfg.map_nn_recall >= 1.0:
-                # Exact segmented argmin: each of k map segments gives its winner.
-                m = d2_full.shape[1]
-                d2p = torch.nn.functional.pad(d2_full, (0, (-m) % k), value=float("inf"))
-                seg = d2p.reshape(d2p.shape[0], k, -1)
-                ci = torch.argmin(seg, dim=2) + torch.arange(k, device=seg.device)[None] * seg.shape[2]
-                ci = torch.clamp(ci, max=m - 1)
-            else:
-                ci = _nearest_k(d2_full, k)[0]
-            return ci, state.map_points[ci]
+            return _build_shortlist(_posed(T, src_fast), map_masked, map_sq, state.map_points, cfg)
 
         def shortlist_query(cand_idx, cand_pts):
-            def nn_q(src_t):
-                diff = src_t[:, None, :] - cand_pts
-                d2k = torch.sum(diff * diff, dim=-1)
-                j = torch.argmin(d2k, dim=1, keepdim=True)
-                return torch.gather(cand_idx, 1, j)[:, 0], torch.gather(d2k, 1, j)[:, 0]
-            return nn_q
+            return lambda src_t: _shortlist_nn(src_t, cand_idx, cand_pts)
 
         nn_query = shortlist_query(*build_shortlist(T0))
         polish = max(cfg.map_nn_polish, 1)
@@ -323,8 +438,8 @@ def _track_map(state: OdometryState, src_pts, src_mask, T0, cfg: OdometryConfig)
         gd2 = nn_overflow = zero
         num_corr = torch.zeros((), dtype=torch.int32, device=zero.device)
         for _ in range(polish):
-            src_t = se3.transform_points(T, src_pts)
-            idx, d2 = _nn.nearest_neighbor(src_t, map_masked, state.map_mask)
+            src_t = _posed(T, src_pts)
+            idx, d2 = _map_nearest(src_t, map_masked, map_sq)
             gate = src_mask & (d2 <= r2)
             # Shortlist-miss fraction at the pose the brute pass saw; the
             # tolerance sits above the two formulas' f32 difference.
@@ -406,6 +521,7 @@ def _track_keyframe(state: OdometryState, src_pts, src_mask, T0, cfg: OdometryCo
     return T, num_corr, torch.sum(d2 * gate) / torch.clamp(num_corr.to(d2.dtype), min=1.0)
 
 
+@fp32()
 def odometry_step(
     state: OdometryState,
     depth: torch.Tensor,
@@ -423,7 +539,7 @@ def odometry_step(
     src_pts = apply_mask(src_pts, src_mask)
 
     # ICP in the keyframe's camera frame, from the previous pose.
-    T0 = se3.inverse(state.kf_pose) @ state.pose
+    T0 = _relative(state.kf_pose, state.pose)
     if cfg.map_budget > 0:
         T, num_corr, fitness, nn_overflow, src_mask = _track_map(state, src_pts, src_mask, T0, cfg)
     else:

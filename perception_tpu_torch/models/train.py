@@ -40,6 +40,7 @@ import numpy as np
 import torch
 from torch import nn
 
+from perception_tpu_torch._tensor import fp32
 from perception_tpu_torch.parallel.mesh import pmean
 
 KINDS = ("sgd", "momentum", "nesterov", "adam", "adamw", "rmsprop", "adagrad", "adadelta")
@@ -212,7 +213,10 @@ def make_train_step(optimizer: Optimizer, loss_fn: Callable = pose_loss, axis_na
     summed over the group and divided by its size, so every rank applies
     the same update. Here ``axis_name`` is the process group itself (a
     mesh's ``get_group("dp")``), where the JAX function takes the axis's
-    name; the JAX function also takes ``apply_fn`` first."""
+    name; the JAX function also takes ``apply_fn`` first. The forward and
+    backward passes run under ``_tensor.fp32()``: the backward's
+    convolutions run after the net's own forward has left its guard."""
+    @fp32()
     def step(state: TrainState, batch: dict):
         net, opt = state.params, state.opt_state
         lr = optimizer.lr(state.step)

@@ -20,7 +20,7 @@ from typing import NamedTuple, Optional
 
 import torch
 
-from perception_tpu_torch._tensor import const
+from perception_tpu_torch._tensor import const, fp32
 from perception_tpu_torch.geometry import se3
 from perception_tpu_torch.ops import nn as _nn
 from perception_tpu_torch.ops.points import apply_mask
@@ -61,6 +61,7 @@ def _umeyama(src: torch.Tensor, tgt: torch.Tensor, w: torch.Tensor) -> torch.Ten
     return se3.make_T(R, t)
 
 
+@fp32()
 def icp_point_to_point(
     source: torch.Tensor,
     source_mask: torch.Tensor,
@@ -148,6 +149,7 @@ def _huber_weight(r: torch.Tensor, delta: float) -> torch.Tensor:
     return torch.where(absr <= delta_t, torch.ones_like(r), delta_t / torch.clamp(absr, min=1e-12))
 
 
+@fp32()
 def icp_point_to_plane(
     source: torch.Tensor,
     source_mask: torch.Tensor,

@@ -3,8 +3,8 @@
 Counterpart of ``perception_tpu/ops/nn.py``'s ``nearest_neighbor``,
 ``radius_count`` and ``knn``. The distance tile is ``|q|^2 - 2 q.r^T + |r|^2``; the product
 ``q @ r^T`` is ``torch.matmul`` (the JAX package leaves it to XLA outside
-any kernel). Callers set ``torch.backends.cuda.matmul.allow_tf32 = False``
-on the card, or the distances lose all but three decimal digits.
+any kernel), under ``_tensor.fp32()``: in TF32 the distances would keep
+about three decimal digits.
 """
 
 from __future__ import annotations
@@ -13,6 +13,7 @@ from typing import Tuple
 
 import torch
 
+from perception_tpu_torch._tensor import fp32
 from perception_tpu_torch.ops.features import _top_k
 from perception_tpu_torch.ops.points import SENTINEL, apply_mask
 
@@ -46,6 +47,7 @@ def gather_rows(table: torch.Tensor, idx: torch.Tensor) -> torch.Tensor:
     return torch.take_along_dim(table, idx[..., None], dim=-2)
 
 
+@fp32()
 def nearest_neighbor(
     query: torch.Tensor,
     ref: torch.Tensor,
@@ -76,6 +78,7 @@ def nearest_neighbor(
     return best_idx, torch.clamp(best_d2, min=0.0)
 
 
+@fp32()
 def radius_count(
     query: torch.Tensor,
     ref: torch.Tensor,
@@ -100,6 +103,7 @@ def radius_count(
     return count
 
 
+@fp32()
 def knn(
     query: torch.Tensor,
     ref: torch.Tensor,

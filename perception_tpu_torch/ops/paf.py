@@ -15,9 +15,11 @@ The JAX package samples the PAF with one-hot matmuls (``_bilinear_mxu``,
 a TPU workaround for slow gathers); the port gathers the four corners and
 interpolates in that form's order, rows (y) first, then columns (x).
 ``.at[].min`` and ``.at[].max`` become ``scatter_reduce_`` with ``amin``
-and ``amax`` over the initial values; segment sums are ``scatter_add_``:
-exact for the integer counts, and in another order (CUDA's atomics) for
-the float limb scores. Means are a sum times 1/n, as under ``jit``. No
+and ``amax`` over the initial values. The integer part counts are a
+``scatter_add_`` (exact in any order); the float limb scores and counts
+per root are ``points.segment_sum`` over ids flattened across the batch,
+which adds each root's limbs in limb order on every device, as the JAX
+scatter does on the CPU. Means are a sum times 1/n, as under ``jit``. No
 loop reads the card.
 """
 
@@ -28,6 +30,7 @@ from typing import NamedTuple
 import torch
 
 from perception_tpu_torch.ops.features import _top_k
+from perception_tpu_torch.ops.points import segment_sum
 
 
 def _clip_bound(size: int) -> float:
@@ -199,10 +202,10 @@ def assemble_people(
     # Sum of limb scores per root (a limb counts for its node A's root).
     root_of_a = torch.where(em, node_ids.gather(1, na), N).clamp(0, N)
     ms = matches_score.reshape(B, -1)
-    limb_scores = torch.zeros(B, N + 1, dtype=ms.dtype, device=dev).scatter_add_(
-        1, root_of_a, torch.where(em, ms, torch.zeros_like(ms)))[:, :N]
-    limb_counts = torch.zeros(B, N + 1, dtype=ms.dtype, device=dev).scatter_add_(
-        1, root_of_a, em.to(ms.dtype))[:, :N]
+    flat = (root_of_a + (N + 1) * torch.arange(B, device=dev)[:, None]).reshape(-1)
+    per_root = segment_sum(torch.stack([torch.where(em, ms, torch.zeros_like(ms)), em.to(ms.dtype)], dim=-1)
+                           .reshape(-1, 2), flat, B * (N + 1)).reshape(B, N + 1, 2)[:, :N]
+    limb_scores, limb_counts = per_root[..., 0], per_root[..., 1]
 
     rank_score = torch.where(counts >= min_person_parts, counts, -1)
     top_counts, roots = _top_k(rank_score, max_people)  # (B, Pmax)

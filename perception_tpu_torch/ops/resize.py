@@ -24,6 +24,8 @@ from typing import Tuple
 
 import torch
 
+from perception_tpu_torch._tensor import fp32
+
 _EPS32 = 1.1920928955078125e-07  # np.finfo(np.float32).eps
 
 
@@ -57,6 +59,7 @@ def compute_weight_mat(input_size: int, output_size: int, scale, translation) ->
     return _weights(input_size, output_size, 1.0 / scale, translation)
 
 
+@fp32()
 def _apply(x: torch.Tensor, wy, wx) -> torch.Tensor:
     """Contract (..., H, W) with (.., H, h) over rows and (.., W, w) over
     columns; a None matrix leaves its axis as it is."""

@@ -346,8 +346,6 @@ def dryrun_rank(rank, device, small: bool, reps: int, single: bool) -> dict:
     dp = R // sp
     mesh = make_mesh(dp, sp)
     shape = SMALL if small else HEADLINE
-    torch.backends.cuda.matmul.allow_tf32 = False
-    torch.backends.cudnn.allow_tf32 = False
     out = {}
     for name, fn in STEPS:
         t0 = time.perf_counter()

@@ -37,6 +37,13 @@ both modes, labels and sizes equal (integer sums; the centroids' float
 atomics within 1e-6); ``detect_object`` on the card against the CPU with
 the same RANSAC triplets: success, cluster id and sizes equal, the pose
 within 1 mm.
+Map mode's first shortlist build from one state (at the first frame and
+at a moved keyframe) equal to the CPU's, index for index. The PAF limb
+sums on roots with ~200 limbs each: 20 calls bit-equal to each other and
+to the CPU. ``Perception`` (480x640, BODY_25 at 368x368, three faces) and
+``extract_people`` with both TF32 flags set True by the caller: the CPU's
+maps, keypoints and face landmarks within the phase tolerances, and the
+flags True after.
 The pose and hand path, with TF32 off for cuDNN and cuBLAS: ``nms_heatmap``
 on random maps and on a plateau with tied peaks equal to the CPU's
 (positions within 1e-6); ``assemble_people`` equal; ``crop_image`` of a
@@ -836,3 +843,82 @@ def test_cuda_example_01_launches_k1_once(cuda_device):
     torch.cuda.synchronize()
     assert ransac_score.launches == before + 1
     assert out["accepted"] and np.isfinite(out["pose"]).all()
+
+
+@pytest.mark.parametrize("moved", [False, True])
+def test_cuda_map_shortlist_matches_cpu_from_the_same_state(cuda_device, moved):
+    import chip_smoke
+    from perception_tpu_torch.bench.slam_bench import bench_camera, bench_config
+    from perception_tpu_torch.models.slam.odometry import init_state
+
+    cam = bench_camera()
+    depths = [torch.from_numpy(render_textured_room(cam, T, seed=i)[1])
+              for i, T in enumerate(sweep_trajectory(n=300)[:2])]
+    cfg = bench_config(map_budget=32768, map_nn="auto").odometry
+    state = init_state(cam, depths[0], cfg)
+    if moved:  # a keyframe away from the origin: the warm start is a product of two poses
+        kf = se3.se3_exp(torch.tensor([0.31, -0.12, 0.07, 0.05, -0.21, 0.13]))
+        state = state._replace(kf_pose=kf, pose=kf @ se3.se3_exp(torch.tensor([0.01, 0.0, 0.004, 0.0, 0.003, 0.0])))
+    want = chip_smoke.first_shortlist(state, depths[1], cam, cfg)
+    got = chip_smoke.first_shortlist(chip_smoke.state_to(state, cuda_device), depths[1].to(cuda_device), cam, cfg)
+    assert want.shape == (cfg.point_budget, cfg.map_nn_shortlist)
+    assert torch.equal(got.cpu(), want)
+
+
+def test_cuda_paf_limb_sums_are_fixed_order(cuda_device):
+    from perception_tpu_torch.models.pose import MPI_15_PAIRS
+    from perception_tpu_torch.ops.paf import assemble_people
+
+    rng = np.random.default_rng(9)
+    P, K, E, L, B = 15, 16, 16, len(MPI_15_PAIRS), 3
+    args = [torch.from_numpy(a) for a in (  # every limb valid: a few roots, each with many limbs
+        rng.integers(0, K, (B, L, E)).astype(np.int32), rng.integers(0, K, (B, L, E)).astype(np.int32),
+        rng.random((B, L, E), dtype=np.float32), np.ones((B, L, E), bool),
+        rng.random((B, P, K, 2), dtype=np.float32) * 100, rng.random((B, P, K), dtype=np.float32),
+        np.ones((B, P, K), bool))]
+    pairs = torch.from_numpy(MPI_15_PAIRS)
+    want = assemble_people(pairs, *args, num_parts=P, max_peaks=K, max_people=6)
+    assert int(want.mask.sum()) >= B and int(want.num_parts.max()) > 100
+    for _ in range(20):
+        got = assemble_people(pairs.to(cuda_device), *(a.to(cuda_device) for a in args), num_parts=P, max_peaks=K,
+                              max_people=6)
+        for a, b in zip(got, want):
+            assert torch.equal(a.cpu(), b)
+
+
+def test_cuda_nets_in_float32_under_tf32_callers(cuda_device, monkeypatch):
+    """``Perception`` on a 480x640 three-face frame with the BODY_25 net at
+    368x368 and ``extract_people`` at 368x368, with both TF32 flags set by
+    the caller: the CPU's maps, keypoints and face landmarks, and the
+    caller's flags after."""
+    import copy
+    import dataclasses
+
+    import chip_smoke
+    from perception_tpu_torch.models import face_fixture as FF
+    from perception_tpu_torch.models.pose import extract_people
+    from perception_tpu_torch.wrapper import Perception, WrapperStructFace, WrapperStructHand, WrapperStructPose
+
+    monkeypatch.setattr(torch.backends.cuda.matmul, "allow_tf32", True)
+    monkeypatch.setattr(torch.backends.cudnn, "allow_tf32", True)
+    fx = FF.FIXTURE_FX * max(chip_smoke.FULL_HW) / max(FF.FIXTURE_HW)
+    frame = chip_smoke.rgb(chip_smoke.three_faces(chip_smoke.FACADE_SEED, chip_smoke.FULL_HW, fx,
+                                                  chip_smoke.FULL_OFFSETS, chip_smoke.FULL_Z, n=1)[1])[0]
+    pose = WrapperStructPose(topology="BODY_25", net_hw=chip_smoke.WIDE_HW)
+    face, hand = WrapperStructFace(enabled=True, max_faces=4), WrapperStructHand(enabled=True, top_n_people=2)
+    card = Perception(pose=pose, face=face, hand=hand, device=cuda_device)
+    net_cpu = copy.deepcopy(card._pose_net).cpu()
+    host = Perception(pose=dataclasses.replace(pose, params=net_cpu), face=face, hand=hand, device="cpu")
+    with chip_smoke.face_landmark_maps() as maps:
+        got = card.emplace_and_pop(torch.from_numpy(frame).to(cuda_device))
+        want = host.emplace_and_pop(frame)
+    assert int(want.faces["mask"].sum()) == 3
+    chip_smoke.compare_datum("facade under TF32 callers", got, want, maps=maps)
+
+    x = torch.from_numpy(np.random.default_rng(1).random(chip_smoke.WIDE_HW + (3,), dtype=np.float32))
+    for a, b in zip(card._pose_net(x.to(cuda_device).permute(2, 0, 1)[None]), net_cpu(x.permute(2, 0, 1)[None])):
+        assert float((a.cpu() - b).abs().max()) <= chip_smoke.WIDE_MAP_RTOL * max(float(b.abs().max()), 1.0)
+    chip_smoke.compare_people("extract_people under TF32 callers",
+                              extract_people(card._pose_net, x.to(cuda_device), "BODY_25", net_hw=chip_smoke.WIDE_HW),
+                              extract_people(net_cpu, x, "BODY_25", net_hw=chip_smoke.WIDE_HW))
+    assert (torch.backends.cuda.matmul.allow_tf32, torch.backends.cudnn.allow_tf32) == (True, True)

@@ -162,3 +162,40 @@ def test_shortlist_ties_keep_the_lower_index(scene):
     new, diag = odo.odometry_step(state, torch.from_numpy(depths[1]), cam, cfg)
     assert_diags_close(diag, jdiag)
     np.testing.assert_allclose(new.pose.numpy(), np.asarray(jnew.pose), atol=1e-5, rtol=0)
+
+
+def test_fixed_order_forms_agree_with_the_matmul_forms(scene):
+    """Map mode's shortlist engine poses its points and forms its distances
+    from explicit products added in a fixed order (the same on the card and
+    the CPU) where it used K=3 and 4x4 matmuls. On the room's map the two
+    forms agree within the parity tolerance above (1e-5): the warm start,
+    the posed points, the distance matrix and the brute polish's nearest
+    distances; the shortlist's candidates are the whole matrix's exact
+    (value, index) top-k."""
+    from perception_tpu_torch.geometry import se3
+    from perception_tpu_torch.ops import nn
+
+    jcam, cam, _, depths = scene
+    _, cfg = configs("map-auto")
+    state = odo.init_state(cam, torch.from_numpy(depths[0]), cfg)
+    kf = se3.se3_exp(torch.tensor([0.31, -0.12, 0.07, 0.05, -0.21, 0.13]))
+    pose = kf @ se3.se3_exp(torch.tensor([0.02, 0.01, -0.01, 0.01, 0.02, -0.01]))
+    T0 = odo._relative(kf, pose)
+    np.testing.assert_allclose(T0.numpy(), (se3.inverse(kf) @ pose).numpy(), atol=1e-6, rtol=0)
+    src = odo._frame_features(cam, torch.from_numpy(depths[1]), cfg)[0]
+    src_t = odo._posed(T0, src)
+    np.testing.assert_allclose(src_t.numpy(), se3.transform_points(T0, src).numpy(), atol=1e-5, rtol=0)
+
+    map_masked = odo.apply_mask(state.map_points, state.map_mask)
+    map_sq = odo._sq_norm(map_masked)
+    d2 = odo._shortlist_d2(src_t, map_masked, map_sq, tile=1000)
+    matmul = (torch.sum(src_t * src_t, 1)[:, None] - 2.0 * (src_t @ map_masked.T)
+              + torch.sum(map_masked * map_masked, 1)[None])
+    np.testing.assert_allclose(d2.numpy(), matmul.numpy(), atol=1e-5, rtol=0)
+    idx, best = odo._map_nearest(src_t, map_masked, map_sq, tile=1000)
+    _, want = nn.nearest_neighbor(src_t, map_masked, state.map_mask)
+    np.testing.assert_allclose(best.numpy(), want.numpy(), atol=1e-5, rtol=0)
+    np.testing.assert_array_equal(best.numpy(), torch.clamp(d2.gather(1, idx[:, None])[:, 0], min=0).numpy())
+    k = cfg.map_nn_shortlist
+    np.testing.assert_array_equal(odo._shortlist_candidates(src_t, map_masked, map_sq, k).numpy(),
+                                  odo._nearest_k(d2, k)[0].numpy())

@@ -90,8 +90,6 @@ def main() -> None:
         time_steps(cs, name, name)
     time_steps(system, "run_slam", "system.run_slam")
     device = torch.device("cuda", 0)
-    torch.backends.cuda.matmul.allow_tf32 = False
-    torch.backends.cudnn.allow_tf32 = False
     with ThreadPoolExecutor(len(cs.KERNELS)) as pool:
         list(pool.map(build.build, cs.KERNELS))
     for name in cs.KERNELS:
