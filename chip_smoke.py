@@ -198,6 +198,21 @@ set to 0 just before it and read just after:
   in the wrappers, exactly those worked out from the bench's loops
   (``bench_launches``); the phase's peak device memory. The kernels line
   takes the bench's launches from those counts by shape.
+- the per-stage roofline (``run_stage_profile``): ``bench/profile_stages.run``
+  at the JAX script's sizes, each of its 12 stages' rows printed (ms by
+  CUDA events over 50 calls, operations and bytes counted from the
+  stage's shapes and data, both shares at most 100% of the card's peaks)
+  and its K1 / K3+K4 launches by shape held exactly (52 at (1, 8192, 1024)
+  in the RANSAC and full-pipeline stages, 52 at 2048 queries x 33792 rows
+  in the voxel-hash stage, none elsewhere);
+- ``bench/facade_profile.run`` (the facade's four extractor subsets, 60
+  frames each; the JAX script's rows; no kernel launch),
+  ``bench/sweep_config.run`` (seven CuboidConfig variants over the 8 bench
+  scenes: no variant may fail, each variant's acceptance equal to the
+  port's on the CPU, K1 56 launches a variant by shape) and
+  ``bench/decay_sweep.run`` at map_decay 0.5 (300 frames, 640x480, BA,
+  a 32k map: ATE within its range, loop closures, keyframes and BA runs
+  exactly).
 
 Each kernel is timed at its path's shapes against its plain version, in
 turns (plain, kernel, kernel, plain): the kernel's eager wrapper call by
@@ -241,7 +256,15 @@ from concurrent.futures import ThreadPoolExecutor
 import numpy as np
 import torch
 
-from perception_tpu_torch.bench import objects_bench, odometry_bench, pose_bench
+from perception_tpu_torch.bench import (
+    decay_sweep,
+    facade_profile,
+    objects_bench,
+    odometry_bench,
+    pose_bench,
+    profile_stages,
+    sweep_config,
+)
 
 FRAMES = 8
 K1_TIMED = ((1, 8192), (2, 8192), (4, 8192), (8, 8192), (1, 32768), (1, 24576))  # the path shapes (B, N) at K=1024
@@ -4014,6 +4037,133 @@ def run_bench(device):
     return shapes
 
 
+PROFILE_STAGES = (  # benchmarks/profile_stages.py's stages, in its order
+    "cuboid/backproject+compact", "cuboid/voxel+compact", "cuboid/ransac-plane", "cuboid/compact+cluster",
+    "cuboid/icp(4x20)", "cuboid/FULL-pipeline", "odom/frame-features(640x480)", "odom/step-keyframe(2048x4096)",
+    "odom/brute-NN(2048x4096)", "odom/brute-NN(2048x32768)", "odom/voxelhash-NN(2048x32768)", "odom/step-map32k",
+)
+STAGE_CALLS = 2 + profile_stages.REPS  # a stage's own first call, measure_stage's warm-up, REPS timed
+STAGE_LAUNCHES = {  # stage -> its calls' K1-K4 launches by shape; every other stage launches none
+    "cuboid/ransac-plane": {"ransac_score": {(1, 8192, 1024): STAGE_CALLS}},
+    "cuboid/FULL-pipeline": {"ransac_score": {(1, 8192, 1024): STAGE_CALLS}},
+    "odom/voxelhash-NN(2048x32768)": {"voxelhash_query": {(2048, 33792): STAGE_CALLS}},
+}
+SWEEP_CALLS = 8 + sweep_config.TIMED  # a variant's calls: one a scene, then the timed ones
+# variant -> bench scenes the port accepts on the CPU with the same triplets (sweep_config.run_variant
+# on the CPU, every variant 8 of 8, as the JAX script expects of base)
+SWEEP_CPU_ACCEPTED = {name: 8 for name in ("base", "boxtmpl1k", "restarts4", "work8k", "iters14", "pre32k",
+                                           "hyp512")}
+
+
+def merged_launches(parts):
+    """The sum of launch dicts {kernel: {shape: n}}, every kernel keyed."""
+    out = {name: {} for name in KERNELS}
+    for part in parts:
+        for name, by_shape in part.items():
+            for shape, n in by_shape.items():
+                out[name][shape] = out[name].get(shape, 0) + n
+    return out
+
+
+def run_stage_profile(device):
+    """``bench/profile_stages.run``: the JAX script's 12 stages at its sizes,
+    each stage's row printed; each with ms, a counted GFLOP and MB, both
+    shares present and at most 100% of the card's peaks; each stage's K1 /
+    K3+K4 launches by shape (read over its calls) exactly ``STAGE_LAUNCHES``'
+    and the phase's the sum of the stages'. Returns the phase's launches."""
+    reset_launches()
+    out = profile_stages.run(device)
+    shapes = read_launch_shapes()
+    print(f"{profile_stages.card_line(device)}; profile_stages on {out['device']}: peaks (f32 TFLOP/s, bf16 "
+          f"TFLOP/s, HBM GB/s) = {out['peaks_f32_tflops_bf16_tflops_hbm_gbps']}")
+    for line in profile_stages.rows(out):
+        print(line)
+    stages = out["stages"]
+    require([st["name"] for st in stages] == list(PROFILE_STAGES),
+            f"profile_stages: stages {[st['name'] for st in stages]}")
+    require(out["peaks_f32_tflops_bf16_tflops_hbm_gbps"] is not None, "profile_stages: no peaks for this card")
+    for st in stages:
+        print(json.dumps({"stage": st["name"], "terms": st["terms"],
+                          "launches": {k: {str(sh): n for sh, n in v.items()} for k, v in st["launches"].items()}}))
+        name = st["name"]
+        require(st["ms"] > 0 and st["flops"] > 0 and st["bytes_accessed"] > 0, f"{name}: no time or no count")
+        require(st["mfu_f32_pct"] is not None and st["hbm_pct"] is not None, f"{name}: no share")
+        require(0 < st["mfu_f32_pct"] <= 100 and 0 < st["hbm_pct"] <= 100, f"{name}: a share over 100%")
+        require(st["launches"] == STAGE_LAUNCHES.get(name, {}),
+                f"{name}: launches {st['launches']}, expected {STAGE_LAUNCHES.get(name, {})}")
+    want = merged_launches(st["launches"] for st in stages)
+    require(shapes == want, f"profile_stages: launches {shapes}, the stages' {want}")
+    return shapes
+
+
+def run_facade_profile(device):
+    """``bench/facade_profile.run``: the facade's four extractor subsets on
+    the 256x256 three-face scene, 60 frames each: the JAX script's rows,
+    each with a time; no K1-K4 launch."""
+    reset_launches()
+    rows = facade_profile.run(device=device)
+    counts = read_launches()
+    require([r["config"] for r in rows] == [n for n, _ in facade_profile.SUBSETS], f"facade_profile: {rows}")
+    require(all(list(r) == ["config", "ms_per_frame", "fps"] and r["ms_per_frame"] > 0 for r in rows),
+            f"facade_profile: {rows}")
+    require(not any(counts.values()), f"facade_profile launched kernels: {counts}")
+
+
+def run_sweep_config(device):
+    """``bench/sweep_config.run``: the seven CuboidConfig variants over the 8
+    bench scenes; no variant may fail; each variant's acceptance count equal
+    to the port's on the CPU for the same scenes and triplets
+    (``SWEEP_CPU_ACCEPTED``); K1 SWEEP_CALLS launches a variant, at
+    (1, 8192, 512) for hyp512 and (1, 8192, 1024) for the rest. Returns the
+    launches by shape."""
+    reset_launches()
+    rows = sweep_config.run(device=device)
+    shapes = read_launch_shapes()
+    failed = [r for r in rows if "error" in r]
+    require(not failed, f"sweep_config: failed variants {failed}")
+    for r in rows:
+        print(f"sweep_config {r['config']}: accepted {r['accepted']}")
+        require(sum(r["accepted"]) == SWEEP_CPU_ACCEPTED[r["config"]],
+                f"sweep_config {r['config']}: {sum(r['accepted'])} accepted, "
+                f"{SWEEP_CPU_ACCEPTED[r['config']]} on the CPU")
+    want = merged_launches({"ransac_score": {(1, 8192, cfg.ransac_hypotheses): SWEEP_CALLS}}
+                           for _, cfg in sweep_config.variants())
+    require(shapes == want, f"sweep_config: launches {shapes}, expected {want}")
+    return shapes
+
+
+# The decay rows this run drives: the sweep's one non-baseline decay at full length (the three rows take
+# ~65 s on the card: python -m perception_tpu_torch.bench.decay_sweep; the baseline's configuration is
+# cli bench's map row, run_bench).
+DECAY_SMOKE = ("0.5",)
+# decay_sweep config -> ((ATE cm low, high), (loop closures, keyframes, BA runs)). At decay 0.5 the card
+# gave 0.47601 cm and the port's CPU 0.47579 and, with frame 0 one ulp up at 64 pixels, 0.47613; every
+# run at every decay 32 / 35 / 34. The range spans decay 1.0's two rounding modes' spread (0.4700-0.5312,
+# about 0.06 cm) around those values.
+DECAY_ROWS = {"decay=0.5": ((0.46, 0.54), (32, 35, 34))}
+
+
+def run_decay_sweep(device):
+    """``bench/decay_sweep.run`` over ``DECAY_SMOKE``: 300-frame 640x480 SLAM
+    runs, BA on, a 32k map: the JAX script's rows printed; each row's ATE
+    within its range and its loop closures, keyframes and BA runs equal to
+    ``DECAY_ROWS``' (map mode's ATE is bimodal under rounding, so never one
+    value); no K1-K4 launch."""
+    reset_launches()
+    out = decay_sweep.run(list(DECAY_SMOKE), device=device)
+    counts = read_launches()
+    require([row["config"] for row, _ in out] == [f"decay={d}" for d in DECAY_SMOKE],
+            f"decay_sweep: rows {[row for row, _ in out]}")
+    for row, r in out:
+        (lo, hi), want = DECAY_ROWS[row["config"]]
+        got = (r["loop_closures"], r["keyframes"], r["ba_runs"])
+        print(f"decay_sweep {row['config']}: ATE {r['ate_cm']} cm (range {lo}-{hi}), loop closures / keyframes / "
+              f"BA runs {got} (expected {want}), {r['slam_fps']:.2f} frames/s")
+        require(lo <= r["ate_cm"] <= hi, f"decay_sweep {row['config']}: ATE {r['ate_cm']} cm outside {lo}-{hi}")
+        require(got == want, f"decay_sweep {row['config']}: closures / keyframes / BA runs {got}, expected {want}")
+    require(not any(counts.values()), f"decay_sweep launched kernels: {counts}")
+
+
 def json_times(t):
     """A kernel's times for the JSON line: ``ms`` the eager wrapper call,
     ``device_ms`` its device time by graph replay. No single PyTorch call
@@ -4090,6 +4240,10 @@ def main() -> int:
     phase(run_multichip, train_flops)
     example_k1 = phase(run_examples, device)
     bench = phase(run_bench, device)
+    stages = phase(run_stage_profile, device)
+    phase(run_facade_profile, device)
+    sweep = phase(run_sweep_config, device)
+    phase(run_decay_sweep, device)
 
     k1_times = phase(time_kernel, device)
     k2_times = phase(time_k2, device)
@@ -4110,9 +4264,11 @@ def main() -> int:
             "floor_ms": k1_times[bn]["floor_ms"],
         } for shape, launches, bn in (
             ("B=1 N=8192 K=1024 (cuboid, one frame a call; with cli cuboid's, the leaf nodes' ground planes, "
-             "example 01's and cli bench's batch-1 frames)",
+             "example 01's, cli bench's batch-1 frames, profile_stages' RANSAC and full-pipeline stages and "
+             "sweep_config's six K=1024 variants)",
              cuboid_b1_launches + cli_launches["cuboid"] + leaf_plane_launches + example_k1[(1, 8192, 1024)]
-             + bench["ransac_score"][(1, 8192, 1024)], (1, 8192)),
+             + bench["ransac_score"][(1, 8192, 1024)] + stages["ransac_score"][(1, 8192, 1024)]
+             + sweep["ransac_score"][(1, 8192, 1024)], (1, 8192)),
             ("B=2 N=8192 K=1024 (cli bench's batch-2 blocks)", bench["ransac_score"][(2, 8192, 1024)], (2, 8192)),
             ("B=4 N=8192 K=1024 (cli bench's batch-4 blocks)", bench["ransac_score"][(4, 8192, 1024)], (4, 8192)),
             ("B=8 N=8192 K=1024 (cuboid batches: default, cc, p2p; with pcl_parity's one B=2 call and cli "
@@ -4123,7 +4279,8 @@ def main() -> int:
              (1, 32768)),
             ("B=1 N=24576 K=1024 (tracker: cli bench's tracker row)", bench["ransac_score"][(1, 24576, 1024)],
              (1, 24576)),
-            ("B=1 N=8192 K=512 (surface_frame)", leaf_surface_launches, K1_SURFACE),
+            ("B=1 N=8192 K=512 (surface_frame; with sweep_config's hyp512 variant)",
+             leaf_surface_launches + sweep["ransac_score"][K1_SURFACE], K1_SURFACE),
             ("B=1 N=32768 K=256 (example 09: detect_object at 256 hypotheses)", example_k1[(1, 32768, 256)],
              (1, 32768, 256)),
             ("B=1 N=16384 K=1024 (example 12: the tracker at work_capacity 16384)", example_k1[(1, 16384, 1024)],
@@ -4155,8 +4312,10 @@ def main() -> int:
             "max_abs_err": k3_err,
             **json_times(k3_times[key]),
         } for shape, launches, key in (
-            ("2048 q, 33792 rows (odometry and SLAM map mode on the hash)",
-             odo_launches["voxelhash_query"] + slam_launches["voxelhash_query"], (32768, 2048)),
+            ("2048 q, 33792 rows (odometry and SLAM map mode on the hash; with profile_stages' "
+             "voxelhash-NN stage)",
+             odo_launches["voxelhash_query"] + slam_launches["voxelhash_query"]
+             + stages["voxelhash_query"][(2048, 33792)], (32768, 2048)),
             *((f"{nq} q, {m} map points (cli bench's NN crossover)", n, ("crossover", nq, m))
               for (nq, m), n in bench["voxelhash_query"].items()),
         )),

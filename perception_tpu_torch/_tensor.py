@@ -30,6 +30,28 @@ def consts(like: torch.Tensor, *values):
     return tuple(v if isinstance(v, torch.Tensor) else const(float(v), like) for v in values)
 
 
+def sqrt_rn(x: torch.Tensor) -> torch.Tensor:
+    """The correctly rounded square root, as XLA's and numpy's.
+
+    torch's CPU ``sqrt`` is not correctly rounded in every build on every
+    host: torch 2.13.0+cpu on an AMD EPYC puts 2,876,932 of the 2^24
+    float32 roots in [1, 4) one ulp off, whatever
+    ``ATEN_CPU_CAPABILITY``. Its float64 root rounded to float32 equals
+    the correctly rounded one on all 2^24 (and scaling by 4 is exact), so
+    a float32 root on the CPU is taken that way. CUDA's ``sqrt`` is
+    correctly rounded and stays one kernel."""
+    if x.dtype == torch.float32 and x.device.type == "cpu":
+        return torch.sqrt(x.double()).float()
+    return torch.sqrt(x)
+
+
+def norm_rn(x: torch.Tensor, keepdim: bool = False) -> torch.Tensor:
+    """Euclidean norm over the last axis: the squares' sum (on the CPU a
+    3- or 4-wide row adds left to right), then :func:`sqrt_rn`
+    (``torch.linalg.vector_norm`` takes torch's root)."""
+    return sqrt_rn(torch.sum(x * x, dim=-1, keepdim=keepdim))
+
+
 @contextlib.contextmanager
 def fp32():
     """Full float32 inside the block: TF32 off for cuDNN's convolutions

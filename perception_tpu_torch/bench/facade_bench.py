@@ -48,7 +48,10 @@ def staged_frames(hw=(256, 256)) -> np.ndarray:
     return np.repeat(np.stack(grays)[..., None], 3, axis=-1).astype(np.float32)
 
 
-def run(frames: int = 120, hw=(256, 256), device="cuda") -> dict:
+def make_engine(pose: bool = True, face: bool = True, hand: bool = True, device="cuda"):
+    """The benchmark's ``Perception`` on the trained fixtures, with the
+    given extractors on (MPI_15 pose at its net size, 4 face slots, hands
+    of the top 2 people)."""
     from perception_tpu_torch.models import face_fixture as FF
     from perception_tpu_torch.models import hand_fixture as HF
     from perception_tpu_torch.models import pose_fixture as PF
@@ -56,12 +59,16 @@ def run(frames: int = 120, hw=(256, 256), device="cuda") -> dict:
 
     if not (PF.fixture_available() and FF.fixture_available() and HF.fixture_available()):
         raise RuntimeError("trained fixtures missing")
-    engine = Perception(
-        pose=WrapperStructPose(topology=PF.FIXTURE_TOPOLOGY, net_hw=PF.FIXTURE_HW),
-        face=WrapperStructFace(enabled=True, max_faces=4),
-        hand=WrapperStructHand(enabled=True, top_n_people=2),
+    return Perception(
+        pose=WrapperStructPose(enabled=pose, topology=PF.FIXTURE_TOPOLOGY, net_hw=PF.FIXTURE_HW),
+        face=WrapperStructFace(enabled=face, max_faces=4),
+        hand=WrapperStructHand(enabled=hand, top_n_people=2),
         device=device,
     )
+
+
+def run(frames: int = 120, hw=(256, 256), device="cuda") -> dict:
+    engine = make_engine(device=device)
     imgs = torch.from_numpy(staged_frames(hw)).to(device)
     sync(imgs)
 

@@ -10,7 +10,7 @@ from __future__ import annotations
 
 import torch
 
-from perception_tpu_torch._tensor import const
+from perception_tpu_torch._tensor import const, norm_rn, sqrt_rn
 
 _EPS = 1e-8
 
@@ -44,7 +44,7 @@ def so3_exp(omega: torch.Tensor) -> torch.Tensor:
     """Rodrigues' formula: (..., 3) axis-angle -> (..., 3, 3) rotation,
     with the same theta_sq < 1e-8 Taylor branches as the JAX package."""
     theta_sq = torch.sum(omega * omega, dim=-1)
-    theta = torch.sqrt(theta_sq + _EPS * _EPS)
+    theta = sqrt_rn(theta_sq + _EPS * _EPS)
     small = theta_sq < 1e-8
 
     a = torch.where(small, 1.0 - theta_sq / 6.0, torch.sin(theta) / theta)
@@ -61,7 +61,7 @@ def so3_exp(omega: torch.Tensor) -> torch.Tensor:
 def _so3_left_jacobian(omega: torch.Tensor) -> torch.Tensor:
     """V matrix of SE(3) exp: integrates rotation along the twist."""
     theta_sq = torch.sum(omega * omega, dim=-1)
-    theta = torch.sqrt(theta_sq + _EPS * _EPS)
+    theta = sqrt_rn(theta_sq + _EPS * _EPS)
     small = theta_sq < 1e-8
 
     b = torch.where(
@@ -96,7 +96,7 @@ def so3_log(R: torch.Tensor) -> torch.Tensor:
     # The shorter rotation (w >= 0), so theta lies in [0, pi].
     v = torch.where(w[..., None] < 0, -v, v)
     w = torch.abs(w)
-    vnorm = torch.linalg.vector_norm(v, dim=-1)
+    vnorm = norm_rn(v)
     theta = 2.0 * torch.atan2(vnorm, w)
     scale = torch.where(
         vnorm < 1e-6,
@@ -134,10 +134,10 @@ def orthonormalize_T(T: torch.Tensor) -> torch.Tensor:
     this projection."""
     R = T[..., :3, :3]
     c0 = R[..., :, 0]
-    c0 = c0 / torch.clamp(torch.linalg.vector_norm(c0, dim=-1, keepdim=True), min=_EPS)
+    c0 = c0 / torch.clamp(norm_rn(c0, keepdim=True), min=_EPS)
     c1 = R[..., :, 1]
     c1 = c1 - torch.sum(c0 * c1, dim=-1, keepdim=True) * c0
-    c1 = c1 / torch.clamp(torch.linalg.vector_norm(c1, dim=-1, keepdim=True), min=_EPS)
+    c1 = c1 / torch.clamp(norm_rn(c1, keepdim=True), min=_EPS)
     c2 = torch.linalg.cross(c0, c1, dim=-1)
     return make_T(torch.stack([c0, c1, c2], dim=-1), T[..., :3, 3])
 
@@ -164,14 +164,16 @@ def rotate_points(T: torch.Tensor, vectors: torch.Tensor) -> torch.Tensor:
 def quat_to_matrix(q: torch.Tensor) -> torch.Tensor:
     """Quaternion (..., 4) in (x, y, z, w) order (tf convention) -> (..., 3, 3).
 
-    The norm is summed as XLA fuses ``jnp.linalg.norm``: a float32 FMA
-    chain over the four squares, emulated in float64 (a product of two
-    float32 values is exact there) with one rounding to float32 a step."""
+    The norm is formed as XLA's CPU code forms ``jnp.linalg.norm``: four
+    ``vfmadd213ps`` from 0 over the squares in order, emulated in float64
+    (a product of two float32 values is exact there) with one rounding to
+    float32 a step, then a correctly rounded root (``vsqrtps``;
+    :func:`sqrt_rn`)."""
     q64 = q.double()
     acc = (q64[..., 0] * q64[..., 0]).float()
     for i in (1, 2, 3):
         acc = (q64[..., i] * q64[..., i] + acc.double()).float()
-    q = q / torch.sqrt(acc)[..., None]
+    q = q / sqrt_rn(acc)[..., None]
     x, y, z, w = q[..., 0], q[..., 1], q[..., 2], q[..., 3]
     return torch.stack(
         [
@@ -194,7 +196,7 @@ def matrix_to_quat(R: torch.Tensor) -> torch.Tensor:
     tr = m00 + m11 + m22
 
     def safe_sqrt(x):
-        return torch.sqrt(torch.clamp(x, min=_EPS))
+        return sqrt_rn(torch.clamp(x, min=_EPS))
 
     s0 = safe_sqrt(1.0 + tr) * 2.0
     q0 = torch.stack([(m21 - m12) / s0, (m02 - m20) / s0, (m10 - m01) / s0, s0 / 4.0], dim=-1)
@@ -209,7 +211,7 @@ def matrix_to_quat(R: torch.Tensor) -> torch.Tensor:
     best = torch.argmax(pivots, dim=-1)
     qs = torch.stack([q0, q1, q2, q3], dim=-2)  # (..., 4 candidates, 4)
     q = torch.gather(qs, -2, best[..., None, None].expand(best.shape + (1, 4)))[..., 0, :]
-    return q / torch.linalg.vector_norm(q, dim=-1, keepdim=True)
+    return q / norm_rn(q, keepdim=True)
 
 
 def _det3(M: torch.Tensor) -> torch.Tensor:
@@ -223,8 +225,14 @@ def _det3(M: torch.Tensor) -> torch.Tensor:
 
 def orthonormalize(R: torch.Tensor) -> torch.Tensor:
     """Project (..., 3, 3) back onto SO(3) by SVD, det +1 enforced:
-    ``U diag(1, 1, det(U Vt)) Vt``. On CUDA the SVD reads the card twice."""
-    U, _, Vh = torch.linalg.svd(R)
-    d = torch.ones(R.shape[:-1], dtype=R.dtype, device=R.device)
+    ``U diag(1, 1, det(U Vt)) Vt``. On CUDA the SVD reads the card twice.
+
+    A float32 input is projected in float64 and rounded once: a float32
+    SVD's error (up to ~1e-6 on a noisy rotation) depends on the LAPACK
+    build and on the CPU it dispatches for, so the float32 result would
+    change with the host."""
+    R64 = R.double() if R.dtype == torch.float32 else R
+    U, _, Vh = torch.linalg.svd(R64)
+    d = torch.ones(R64.shape[:-1], dtype=R64.dtype, device=R.device)
     d = torch.cat([d[..., :2], _det3(U @ Vh)[..., None]], dim=-1)
-    return (U * d[..., None, :]) @ Vh
+    return ((U * d[..., None, :]) @ Vh).to(R.dtype)

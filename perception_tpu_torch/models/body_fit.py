@@ -28,7 +28,7 @@ import numpy as np
 import torch
 from torch.func import jacfwd, vmap
 
-from perception_tpu_torch._tensor import const
+from perception_tpu_torch._tensor import const, norm_rn, sqrt_rn
 from perception_tpu_torch.geometry import se3
 
 # --- default skeleton (BODY_25-compatible subset, 15 joints) ---------------
@@ -164,8 +164,8 @@ def fit_body(
         r = (joints - observed1) * w1[:, None]
         # Huber weights on the 3-D error norm, inside the differentiated
         # function: a masked joint (r = 0) stays in the 1.0 branch.
-        n = torch.linalg.vector_norm(r, dim=-1)
-        w = torch.where(n > huber_delta, torch.sqrt(delta_h / torch.clamp(n, min=1e-9)), torch.ones_like(n))
+        n = norm_rn(r)
+        w = torch.where(n > huber_delta, sqrt_rn(delta_h / torch.clamp(n, min=1e-9)), torch.ones_like(n))
         r = (r * w[:, None]).reshape(-1)
         # Angle prior keeps unobserved chains at rest.
         return torch.cat([r, angle_weight * angles.reshape(-1)])
@@ -198,7 +198,7 @@ def fit_body(
         return T, angles, scale, forward_kinematics(model, T, angles, scale)
 
     T, angles, scale, joints = vmap(pose)(theta)
-    err = torch.linalg.vector_norm(joints - obs, dim=-1)
+    err = norm_rn(joints - obs)
     denom = torch.clamp(torch.sum(w_mask, dim=-1), min=1.0)
     residual = torch.sum(err * w_mask, dim=-1) / denom
     out = (T, angles, scale, joints, residual, torch.stack(accepted, dim=-1))

@@ -9,15 +9,19 @@ The JAX package reads both counts from XLA's compiled cost model
 ``cost_of`` counts the floating-point operations that
 ``torch.utils.flop_counter.FlopCounterMode`` sees while the stage runs
 once (convolutions and matrix products, forward and backward, two
-operations a multiply-add; elementwise operations are not counted), and
-bytes are ``None`` unless the caller passes them. The peaks are the
-card's data sheet numbers; the time comes from CUDA events after a
-warm-up, so it is device time and needs a card.
+operations a multiply-add; elementwise operations and the hand-written
+kernels' work are not counted), and bytes are ``None`` unless the caller
+passes them. A caller that counts a stage from its shapes passes
+``cost=(operations, bytes)`` instead (``bench/profile_stages.py``). The
+peaks are the card's data sheet numbers; on the card the time comes from
+CUDA events after a warm-up, on the CPU (only when asked for) from the
+host clock, with no peaks and so no shares.
 """
 
 from __future__ import annotations
 
 import dataclasses
+import time
 from typing import Callable, Optional
 
 import torch
@@ -48,7 +52,7 @@ def device_peaks(device=None):
 class StageRoofline:
     name: str
     ms: float
-    flops: Optional[float]             # FlopCounterMode's count
+    flops: Optional[float]             # the caller's count, else FlopCounterMode's
     bytes_accessed: Optional[float]    # the caller's, if given
     gflops_per_s: Optional[float] = None
     gbytes_per_s: Optional[float] = None
@@ -56,6 +60,8 @@ class StageRoofline:
     hbm_pct: Optional[float] = None        # achieved / HBM peak
     intensity: Optional[float] = None      # flops / byte
     bound: str = "unknown"
+    terms: dict = dataclasses.field(default_factory=dict)     # the counted terms, by name
+    launches: dict = dataclasses.field(default_factory=dict)  # kernel -> {shape: launches} in the timed calls
 
     def row(self) -> str:
         f = lambda v, fmt: (fmt % v) if v is not None else "    -"
@@ -92,23 +98,35 @@ def measure_stage(
     reps: int = 50,
     peaks=None,
     nbytes: Optional[float] = None,
+    cost: Optional[tuple] = None,
+    device="cuda",
 ) -> StageRoofline:
-    """Steady-state device time (CUDA events around ``reps`` calls after a
-    warm-up call) + the operation count + utilisation against the card's
-    peaks. Needs a card: there is no host-clock fallback."""
-    if not torch.cuda.is_available():
-        raise RuntimeError("measure_stage times on a CUDA card; there is none")
-    fn(*args)
-    torch.cuda.synchronize()
-    start, end = torch.cuda.Event(enable_timing=True), torch.cuda.Event(enable_timing=True)
-    start.record()
-    for _ in range(reps):
+    """Steady-state time of ``fn(*args)`` (``reps`` calls after a warm-up
+    call) + the operation count + utilisation against the card's peaks.
+    On a CUDA ``device`` the time is CUDA events' (the card must be there);
+    on the CPU the host clock's. ``cost=(operations, bytes)`` replaces
+    ``cost_of``'s count and ``nbytes``."""
+    device = torch.device(device)
+    if device.type == "cuda":
+        if not torch.cuda.is_available():
+            raise RuntimeError("measure_stage times on a CUDA card; there is none")
         fn(*args)
-    end.record()
-    end.synchronize()
-    ms = start.elapsed_time(end) / reps
+        torch.cuda.synchronize(device)
+        start, end = torch.cuda.Event(enable_timing=True), torch.cuda.Event(enable_timing=True)
+        start.record()
+        for _ in range(reps):
+            fn(*args)
+        end.record()
+        end.synchronize()
+        ms = start.elapsed_time(end) / reps
+    else:
+        fn(*args)
+        t0 = time.perf_counter()
+        for _ in range(reps):
+            fn(*args)
+        ms = (time.perf_counter() - t0) * 1e3 / reps
 
-    flops, nbytes = cost_of(fn, *args, nbytes=nbytes)
+    flops, nbytes = cost if cost is not None else cost_of(fn, *args, nbytes=nbytes)
     st = StageRoofline(name=name, ms=ms, flops=flops, bytes_accessed=nbytes)
     if flops is not None:
         st.gflops_per_s = flops / (ms * 1e-3) / 1e9
@@ -117,7 +135,7 @@ def measure_stage(
     if flops and nbytes:
         st.intensity = flops / max(nbytes, 1.0)
     if peaks is None:
-        peaks = device_peaks()
+        peaks = device_peaks(device)
     if peaks and st.gflops_per_s is not None:
         f32_tf, _, hbm = peaks
         st.mfu_f32_pct = 100.0 * st.gflops_per_s / (f32_tf * 1e3)

@@ -24,9 +24,12 @@ segment sums in another order. Tolerances, as measured:
   the SLAM system runs it): poses within 3.1e-6, landmarks 9.6e-7, costs
   rtol 5.4e-6; held to atol 2e-5 and rtol 1e-4.
 - ``bundle_adjust`` on pure reprojection: the scale gauge is free, so
-  rounding slides the solution along it: poses within 2.1e-4 and
-  landmarks 9.1e-4 after 12 iterations (held to 1e-3 and 5e-3), costs
-  rtol 5.9e-6 (held to 1e-4).
+  rounding slides the solution along it, by a factor that changes with
+  the host (poses 2.1e-4 and landmarks 9.1e-4 apart on one host after
+  12 iterations; 6.05e-3 and 2.64e-2 on another, scale 0.99334). After
+  one least-squares scale on the translations, applied to the landmarks
+  too: poses within 9.6e-7 and landmarks 8.4e-6 on the second host (held
+  to 1e-3 and 5e-3), costs rtol 3.2e-6 (held to 1e-4).
 - ``ba_blocks``: every block within rtol 1e-5 of the JAX package's.
 - ``optimize_pose_graph``: poses within 2.9e-5 (held to 1e-4), costs
   rtol 1e-5 (held to 1e-4).
@@ -60,11 +63,20 @@ def depth_pinned_problem(seed):
     return p._replace(obs_z=jnp.asarray(z, jnp.float32), obs_zw=jnp.asarray(FX / z, jnp.float32))
 
 
-def assert_ba_close(p, iterations, atol_pose, atol_lm, rtol_cost):
+def assert_ba_close(p, iterations, atol_pose, atol_lm, rtol_cost, align_scale=False):
     want = jb.bundle_adjust(p, FX, FY, CX, CY, iterations=iterations)
     got = tb.bundle_adjust(tb.BAProblem(*(t(x) for x in p)), FX, FY, CX, CY, iterations=iterations)
-    np.testing.assert_allclose(got.poses_wc.numpy(), np.asarray(want.poses_wc), atol=atol_pose, rtol=0)
-    np.testing.assert_allclose(got.landmarks.numpy(), np.asarray(want.landmarks), atol=atol_lm, rtol=0)
+    poses, lms = got.poses_wc.numpy().copy(), got.landmarks.numpy()
+    if align_scale:
+        # The least-squares factor from the translations onto the JAX
+        # package's; pose 0 sits at the origin, so the landmarks scale by
+        # the same factor.
+        tg, tw = poses[:, :3, 3], np.asarray(want.poses_wc)[:, :3, 3]
+        s = np.sum(tg * tw) / np.sum(tg * tg)
+        poses[:, :3, 3] *= s
+        lms = lms * s
+    np.testing.assert_allclose(poses, np.asarray(want.poses_wc), atol=atol_pose, rtol=0)
+    np.testing.assert_allclose(lms, np.asarray(want.landmarks), atol=atol_lm, rtol=0)
     for g, w in ((got.initial_cost, want.initial_cost), (got.final_cost, want.final_cost)):
         np.testing.assert_allclose(float(g), float(w), rtol=rtol_cost)
     assert float(got.final_cost) < float(got.initial_cost)
@@ -76,7 +88,7 @@ def test_bundle_adjust_with_depth_matches_jax(seed, iterations):
 
 
 def test_bundle_adjust_reprojection_only_matches_jax():
-    assert_ba_close(make_ba_problem()[0], 12, 1e-3, 5e-3, 1e-4)
+    assert_ba_close(make_ba_problem()[0], 12, 1e-3, 5e-3, 1e-4, align_scale=True)
 
 
 def test_bundle_adjust_respects_obs_mask():

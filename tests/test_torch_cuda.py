@@ -922,3 +922,43 @@ def test_cuda_nets_in_float32_under_tf32_callers(cuda_device, monkeypatch):
                               extract_people(card._pose_net, x.to(cuda_device), "BODY_25", net_hw=chip_smoke.WIDE_HW),
                               extract_people(net_cpu, x, "BODY_25", net_hw=chip_smoke.WIDE_HW))
     assert (torch.backends.cuda.matmul.allow_tf32, torch.backends.cudnn.allow_tf32) == (True, True)
+
+
+def test_cuda_correctly_rounded_roots_and_projection(cuda_device):
+    """``_tensor.sqrt_rn`` on the card is CUDA's correctly rounded root, one
+    kernel (numpy's float32 root is the reference), and equals the CPU's;
+    ``norm_rn`` within 2 ulps of the CPU's (the card's reduction picks its
+    own order); ``se3.orthonormalize`` (a float64 projection) on the card
+    within an ulp of the CPU's."""
+    from perception_tpu_torch._tensor import norm_rn, sqrt_rn
+
+    x = np.random.default_rng(3).random(100000, dtype=np.float32) * 4
+    got = sqrt_rn(torch.from_numpy(x).to(cuda_device)).cpu().numpy()
+    np.testing.assert_array_equal(got, np.sqrt(x))
+    np.testing.assert_array_equal(got, sqrt_rn(torch.from_numpy(x)).numpy())
+    v = torch.from_numpy(x[:3000].reshape(1000, 3))
+    np.testing.assert_allclose(norm_rn(v.to(cuda_device)).cpu().numpy(), norm_rn(v).numpy(), rtol=2.4e-7, atol=0)
+    R = se3.so3_exp(torch.from_numpy(np.random.default_rng(4).normal(size=(64, 3)).astype(np.float32)))
+    R = R + torch.from_numpy(np.random.default_rng(5).normal(size=(64, 3, 3)).astype(np.float32) * 0.05)
+    np.testing.assert_allclose(se3.orthonormalize(R.to(cuda_device)).cpu().numpy(), se3.orthonormalize(R).numpy(),
+                               atol=2.4e-7, rtol=0)
+
+
+def test_cuda_stage_counts_equal_the_cpus(cuda_device):
+    """``profile_stages``' counts read the data the same way on the card and
+    the CPU: the voxel hash's scanned pairs, RANSAC's and the brute NN's."""
+    from perception_tpu_torch.bench import profile_stages as ps
+    from perception_tpu_torch.ops import nn
+    from perception_tpu_torch.utils import jax_random
+
+    q = torch.from_numpy(jax_random.normal(jax_random.key(0), (2048, 3)))
+    ref = torch.from_numpy(jax_random.normal(jax_random.key(2), (32768, 3)) * np.float32(2.0))
+    mask = torch.ones(32768, dtype=torch.bool)
+    counts = []
+    for dev in ("cpu", cuda_device):
+        qd, rd, md = q.to(dev), ref.to(dev), mask.to(dev)
+        vh = voxelhash.build(rd, md, cell_size=ps.HASH_CELL)
+        counts.append((ps.hash_nn_cost(vh, qd, voxelhash.query(vh, qd)),
+                       ps.brute_nn_cost(qd, rd, md, nn.nearest_neighbor(qd, rd, md))))
+    assert counts[0] == counts[1]
+    assert counts[0][0][2]["pairs"] > 0

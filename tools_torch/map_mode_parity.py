@@ -27,12 +27,13 @@ the CPU differ in rounding alone; ``--triplets device`` keeps the bench's
 own generator (``cli bench``'s row). ``--ulp-seed S`` moves the first
 frame's depth one ulp up at 64 pixels drawn from numpy's
 ``default_rng(S)``: the spread of such runs is the rounding baseline
-that a card run is compared with.
+that a card run is compared with. ``--map-decay D`` sets odometry's
+``map_decay`` (the decay sweep's rows).
 
 Run from the repository root:
 ``python3 tools_torch/map_mode_parity.py lockstep [--frames N] [--parent-form]``
 ``python3 tools_torch/map_mode_parity.py build-times [--frames N]``
-``python3 tools_torch/map_mode_parity.py slam [--cpu] [--triplets cpu|device] [--ulp-seed S] [--frames N]``
+``python3 tools_torch/map_mode_parity.py slam [--cpu] [--triplets cpu|device] [--ulp-seed S] [--map-decay D] [--frames N]``
 """
 
 from __future__ import annotations
@@ -250,7 +251,7 @@ def time_builds(calls: int = 20) -> dict:
             "device": torch.cuda.get_device_name(0)}
 
 
-def slam(device: str, frames: int, triplets: str, ulp_seed) -> dict:
+def slam(device: str, frames: int, triplets: str, ulp_seed, map_decay: float = 1.0) -> dict:
     from perception_tpu_torch.models.slam import system
     from perception_tpu_torch.ops.ransac import _sample_indices
 
@@ -263,11 +264,11 @@ def slam(device: str, frames: int, triplets: str, ulp_seed) -> dict:
     slam_bench.rendered_sequence = lambda *a: scene
     try:
         t0 = time.perf_counter()
-        out = slam_bench.run(frames=frames, enable_ba=True, map_budget=32768, device=device)
+        out = slam_bench.run(frames=frames, enable_ba=True, map_budget=32768, device=device, map_decay=map_decay)
     finally:
         system._draw_triplets, slam_bench.rendered_sequence = saved_draw, saved_seq
     keys = ("ate_cm", "loop_closures", "keyframes", "ba_runs", "pose_graph_corrections", "device")
-    return {"triplets": triplets, "ulp_seed": ulp_seed, **{k: out[k] for k in keys},
+    return {"triplets": triplets, "ulp_seed": ulp_seed, "map_decay": map_decay, **{k: out[k] for k in keys},
             "seconds": round(time.perf_counter() - t0, 1)}
 
 
@@ -284,6 +285,7 @@ def main() -> None:
     sl.add_argument("--frames", type=int, default=300)
     sl.add_argument("--triplets", choices=("cpu", "device"), default="cpu")
     sl.add_argument("--ulp-seed", type=int, default=None)
+    sl.add_argument("--map-decay", type=float, default=1.0)
     args = ap.parse_args()
     if args.cmd in ("lockstep", "build-times") and not torch.cuda.is_available():
         raise SystemExit(f"{args.cmd} needs a CUDA card: none is available")
@@ -303,7 +305,7 @@ def main() -> None:
         device = "cpu" if args.cpu else "cuda"
         if device == "cuda" and not torch.cuda.is_available():
             raise SystemExit("no CUDA card is available; pass --cpu to run on the CPU")
-        print(json.dumps(slam(device, args.frames, args.triplets, args.ulp_seed)), flush=True)
+        print(json.dumps(slam(device, args.frames, args.triplets, args.ulp_seed, args.map_decay)), flush=True)
 
 
 if __name__ == "__main__":

@@ -9,9 +9,13 @@ around each of their steps (``system.run_slam``, ``frames_per_s``,
 time and each step's total and call count. Before the phases it holds
 ``chip_smoke.device_events`` against ``torch.profiler``'s ``events()``
 on one profile of 8 SLAM steps (events, summed µs, names) and times both.
+With ``--bench-scripts`` it runs the phases of the four per-path scripts
+instead (``run_stage_profile``, ``run_facade_profile``,
+``run_sweep_config``, ``run_decay_sweep``), timing the cuboid and odometry
+stages, each facade subset, each config variant and each SLAM run.
 
 Needs a CUDA card. Run from the repository root:
-``python3 tools_torch/smoke_phase_times.py``
+``python3 tools_torch/smoke_phase_times.py [--bench-scripts]``
 """
 
 from __future__ import annotations
@@ -85,15 +89,30 @@ def check_device_events(device, scene):
           f"names whose sums differ: {len(differ)}", flush=True)
 
 
+def bench_scripts(device) -> None:
+    from perception_tpu_torch.bench import facade_profile, profile_stages, slam_bench, sweep_config
+
+    for module, name in ((profile_stages, "cuboid_stages"), (profile_stages, "odometry_stages"),
+                         (facade_profile, "time_engine"), (sweep_config, "run_variant"), (slam_bench, "run")):
+        time_steps(module, name, f"{module.__name__.rsplit('.', 1)[-1]}.{name}")
+    for phase in (cs.run_stage_profile, cs.run_facade_profile, cs.run_sweep_config, cs.run_decay_sweep):
+        t0 = time.perf_counter()
+        phase(device)
+        report(phase.__name__, t0)
+
+
 def main() -> None:
-    for name in STEPS:
-        time_steps(cs, name, name)
-    time_steps(system, "run_slam", "system.run_slam")
     device = torch.device("cuda", 0)
     with ThreadPoolExecutor(len(cs.KERNELS)) as pool:
         list(pool.map(build.build, cs.KERNELS))
     for name in cs.KERNELS:
         build.load_library(name)
+    if "--bench-scripts" in sys.argv[1:]:
+        bench_scripts(device)
+        return
+    for name in STEPS:
+        time_steps(cs, name, name)
+    time_steps(system, "run_slam", "system.run_slam")
 
     t0 = time.perf_counter()
     scene = cs.slam_scene()
