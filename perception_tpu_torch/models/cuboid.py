@@ -32,6 +32,7 @@ from perception_tpu_torch.ops import points as P
 from perception_tpu_torch.ops.cluster import euclidean_cluster
 from perception_tpu_torch.ops.icp import icp_batched, icp_point_to_plane
 from perception_tpu_torch.ops.ransac import PlaneFit, ransac_plane
+from perception_tpu_torch.utils.profiler import span
 
 
 @dataclasses.dataclass(frozen=True)
@@ -138,14 +139,15 @@ def segment_ground_plane(
     """Passthrough + voxel downsample + RANSAC plane of (N, 3) or (B, N, 3)
     clouds; returns (plane_fit, downsampled_points, box_mask), where
     box_mask selects the off-plane (object) points."""
-    dpts, dm = ransac_input(points, mask, config)
-    fit = ransac_plane(
-        dpts, dm, generator,
-        threshold=config.ransac_threshold,
-        num_hypotheses=config.ransac_hypotheses,
-        indices=indices,
-    )
-    return fit, dpts, dm & ~fit.inliers
+    with span("cuboid.segment_ground_plane"):
+        dpts, dm = ransac_input(points, mask, config)
+        fit = ransac_plane(
+            dpts, dm, generator,
+            threshold=config.ransac_threshold,
+            num_hypotheses=config.ransac_hypotheses,
+            indices=indices,
+        )
+        return fit, dpts, dm & ~fit.inliers
 
 
 def template_features(
@@ -214,31 +216,32 @@ def estimate_cuboid_pose(
     frame (the inverse of the best scene->template transform)."""
     if config.icp_mode == "p2plane" and template_normals is None:
         raise ValueError("template_normals is required: take them from template_features()")
-    k = config.icp_restarts
-    cs = P.centroid(box_points, box_mask)
-    ct = P.centroid(template, template_mask)
-    inits = _yaw_restart_inits(cs, ct, k, box_points.dtype)  # (..., k, 4, 4)
+    with span("cuboid.estimate_cuboid_pose"):
+        k = config.icp_restarts
+        cs = P.centroid(box_points, box_mask)
+        ct = P.centroid(template, template_mask)
+        inits = _yaw_restart_inits(cs, ct, k, box_points.dtype)  # (..., k, 4, 4)
 
-    lead = box_points.shape[:-2]
-    sources = box_points[..., None, :, :].expand(lead + (k,) + box_points.shape[-2:])
-    masks = box_mask[..., None, :].expand(lead + (k,) + box_mask.shape[-1:])
-    if config.icp_mode == "p2plane":
-        res = icp_point_to_plane(
-            sources, masks, template, template_normals, template_mask, inits,
-            max_iterations=config.icp_max_iterations,
-            transformation_epsilon=1e-12,
-        )
-    else:
-        res = icp_batched(
-            sources, masks, template, template_mask, init_transforms=inits,
-            max_iterations=config.icp_max_iterations,
-            transformation_epsilon=1e-9,
-        )
-    best = torch.argmin(res.fitness, dim=-1, keepdim=True)  # (..., 1)
-    T_best = torch.take_along_dim(res.transform, best[..., None, None], dim=-3)[..., 0, :, :]
-    fitness = torch.take_along_dim(res.fitness, best, dim=-1)[..., 0]
-    converged = torch.take_along_dim(res.converged, best, dim=-1)[..., 0]
-    return se3.inverse(T_best), fitness, converged
+        lead = box_points.shape[:-2]
+        sources = box_points[..., None, :, :].expand(lead + (k,) + box_points.shape[-2:])
+        masks = box_mask[..., None, :].expand(lead + (k,) + box_mask.shape[-1:])
+        if config.icp_mode == "p2plane":
+            res = icp_point_to_plane(
+                sources, masks, template, template_normals, template_mask, inits,
+                max_iterations=config.icp_max_iterations,
+                transformation_epsilon=1e-12,
+            )
+        else:
+            res = icp_batched(
+                sources, masks, template, template_mask, init_transforms=inits,
+                max_iterations=config.icp_max_iterations,
+                transformation_epsilon=1e-9,
+            )
+        best = torch.argmin(res.fitness, dim=-1, keepdim=True)  # (..., 1)
+        T_best = torch.take_along_dim(res.transform, best[..., None, None], dim=-3)[..., 0, :, :]
+        fitness = torch.take_along_dim(res.fitness, best, dim=-1)[..., 0]
+        converged = torch.take_along_dim(res.converged, best, dim=-1)[..., 0]
+        return se3.inverse(T_best), fitness, converged
 
 
 def cuboid_pipeline_step(
@@ -254,21 +257,22 @@ def cuboid_pipeline_step(
     """Full pipeline on an (N, 3) or (B, N, 3) masked cloud; pass a
     template preprocessed by ``template_features`` and its normals."""
     fit, dpts, box_mask = segment_ground_plane(points, mask, generator, config, indices)
-    box_pts, box_m = _per_frame(lambda p, m: P.compact(p, m, config.box_capacity), dpts, box_mask)
-    if config.cluster_filter == "cc":
-        def largest(p, m):
-            cl = euclidean_cluster(p, m, tolerance=config.cluster_tolerance, min_size=1,
-                                   max_size=config.box_capacity, max_clusters=8)
-            return m & (cl.labels == 0)
+    with span("cuboid.box_filter"):
+        box_pts, box_m = _per_frame(lambda p, m: P.compact(p, m, config.box_capacity), dpts, box_mask)
+        if config.cluster_filter == "cc":
+            def largest(p, m):
+                cl = euclidean_cluster(p, m, tolerance=config.cluster_tolerance, min_size=1,
+                                       max_size=config.box_capacity, max_clusters=8)
+                return m & (cl.labels == 0)
 
-        box_m = _per_frame(largest, box_pts, box_m)
-        box_pts = P.apply_mask(box_pts, box_m)
-    elif config.cluster_filter == "blob":
-        radius = config.blob_radius
-        if radius is None:
-            radius = 0.5 * float(np.linalg.norm(config.dims)) + 0.02
-        box_m = _per_frame(lambda p, m: P.dominant_blob_filter(p, m, radius=radius), box_pts, box_m)
-        box_pts = P.apply_mask(box_pts, box_m)
+            box_m = _per_frame(largest, box_pts, box_m)
+            box_pts = P.apply_mask(box_pts, box_m)
+        elif config.cluster_filter == "blob":
+            radius = config.blob_radius
+            if radius is None:
+                radius = 0.5 * float(np.linalg.norm(config.dims)) + 0.02
+            box_m = _per_frame(lambda p, m: P.dominant_blob_filter(p, m, radius=radius), box_pts, box_m)
+            box_pts = P.apply_mask(box_pts, box_m)
     pose, fitness, _ = estimate_cuboid_pose(
         box_pts, box_m, template, template_mask, config,
         template_normals=template_normals,
@@ -317,12 +321,13 @@ def cuboid_pipeline_from_depth(
     indices: Optional[torch.Tensor] = None,
 ) -> CuboidResult:
     """Depth image (H, W) meters -> CuboidResult."""
-    depth, camera = decimate(depth, camera, config.depth_stride)
-    points, mask = camera.backproject_depth(depth)
-    return cuboid_pipeline_step(
-        points, mask, template, template_mask, generator, config,
-        template_normals=template_normals, indices=indices,
-    )
+    with span("cuboid.pipeline"):
+        depth, camera = decimate(depth, camera, config.depth_stride)
+        points, mask = camera.backproject_depth(depth)
+        return cuboid_pipeline_step(
+            points, mask, template, template_mask, generator, config,
+            template_normals=template_normals, indices=indices,
+        )
 
 
 def cuboid_pipeline_batch(

@@ -59,6 +59,7 @@ from perception_tpu_torch.ops.points import (
     compact_with_attrs,
     voxel_downsample_with_attrs,
 )
+from perception_tpu_torch.utils.profiler import span
 
 SHORTLIST_TILE = 4096  # map columns of the shortlist's distance matrix built at a time
 
@@ -134,19 +135,20 @@ def _subsample_indices(n: int, budget: int, phase, device):
 def _frame_features(camera: PinholeCamera, depth, cfg: OdometryConfig, phase=0):
     """Backproject + normals + subsample one depth image:
     (src_pts, src_mask, kf_pts, kf_norm, kf_mask)."""
-    pts_flat, valid_flat = camera.backproject_depth(
-        depth, min_depth=cfg.min_depth, max_depth=cfg.max_depth
-    )
-    h, w = depth.shape
-    normals, nvalid = normals_from_depth(
-        pts_flat.reshape(h, w, 3), valid_flat.reshape(h, w), max_edge=cfg.normal_max_edge
-    )
-    normals = normals.reshape(-1, 3)
-    good = valid_flat & nvalid.reshape(-1)
+    with span("odometry.frame_features"):
+        pts_flat, valid_flat = camera.backproject_depth(
+            depth, min_depth=cfg.min_depth, max_depth=cfg.max_depth
+        )
+        h, w = depth.shape
+        normals, nvalid = normals_from_depth(
+            pts_flat.reshape(h, w, 3), valid_flat.reshape(h, w), max_edge=cfg.normal_max_edge
+        )
+        normals = normals.reshape(-1, 3)
+        good = valid_flat & nvalid.reshape(-1)
 
-    src_idx = _subsample_indices(h * w, cfg.point_budget, phase, depth.device)
-    kf_idx = _subsample_indices(h * w, cfg.keyframe_budget, phase, depth.device)
-    return pts_flat[src_idx], good[src_idx], pts_flat[kf_idx], normals[kf_idx], good[kf_idx]
+        src_idx = _subsample_indices(h * w, cfg.point_budget, phase, depth.device)
+        kf_idx = _subsample_indices(h * w, cfg.keyframe_budget, phase, depth.device)
+        return pts_flat[src_idx], good[src_idx], pts_flat[kf_idx], normals[kf_idx], good[kf_idx]
 
 
 def _fuse_map(map_pts, map_nrm, map_mask, kf_pts, kf_norm, kf_mask, cfg: OdometryConfig):
@@ -533,68 +535,72 @@ def odometry_step(
     In map mode the step reads ``promote`` to the host once, to decide
     whether to fuse the keyframe into the map (the JAX package's
     ``lax.cond``); nothing else in the step waits for the card."""
-    src_pts, src_mask, new_kf_pts, new_kf_norm, new_kf_mask = _frame_features(
-        camera, depth, cfg, phase=state.frame_index * 97
-    )
-    src_pts = apply_mask(src_pts, src_mask)
-
-    # ICP in the keyframe's camera frame, from the previous pose.
-    T0 = _relative(state.kf_pose, state.pose)
-    if cfg.map_budget > 0:
-        T, num_corr, fitness, nn_overflow, src_mask = _track_map(state, src_pts, src_mask, T0, cfg)
-    else:
-        T, num_corr, fitness = _track_keyframe(state, src_pts, src_mask, T0, cfg)
-        nn_overflow = torch.zeros((), device=T.device)  # brute and fused scan the full cloud
-
-    denom = torch.clamp(torch.sum(src_mask, dtype=torch.int32), min=1)
-    overlap = num_corr.to(torch.float32) / denom.to(torch.float32)
-
-    # Back onto SE(3): the inverse(kf_pose) @ pose warm start doubles any
-    # off-manifold drift per frame.
-    new_pose = se3.orthonormalize_T(state.kf_pose @ T)
-
-    delta = se3.se3_log(T)
-    promote = (
-        (torch.linalg.vector_norm(delta[:3]) > cfg.kf_translation)
-        | (torch.linalg.vector_norm(delta[3:]) > cfg.kf_rotation)
-        | (overlap < cfg.kf_min_overlap)
-    )
-
-    map_pts, map_nrm, map_mask = state.map_points, state.map_normals, state.map_mask
-    map_hash, map_nrm_hash = state.map_hash, state.map_nrm_hash
-    if cfg.map_budget > 0 and bool(promote):
-        # The map re-anchors to the new keyframe and absorbs its cloud;
-        # with the hash engine this is the only place the hash is rebuilt.
-        inv_T = se3.inverse(T)
-        map_pts, map_nrm, map_mask = _fuse_map(
-            se3.transform_points(inv_T, state.map_points),
-            se3.rotate_points(inv_T, state.map_normals),
-            state.map_mask,
-            apply_mask(new_kf_pts, new_kf_mask),
-            new_kf_norm,
-            new_kf_mask,
-            cfg,
+    with span("odometry.step"):
+        src_pts, src_mask, new_kf_pts, new_kf_norm, new_kf_mask = _frame_features(
+            camera, depth, cfg, phase=state.frame_index * 97
         )
-        if _use_hash(cfg):
-            map_hash, map_nrm_hash = _build_map_hash(map_pts, map_nrm, map_mask, cfg)
+        src_pts = apply_mask(src_pts, src_mask)
 
-    new_state = OdometryState(
-        pose=new_pose,
-        kf_pose=torch.where(promote, new_pose, state.kf_pose),
-        kf_points=torch.where(promote, apply_mask(new_kf_pts, new_kf_mask), state.kf_points),
-        kf_normals=torch.where(promote, new_kf_norm, state.kf_normals),
-        kf_mask=torch.where(promote, new_kf_mask, state.kf_mask),
-        frame_index=state.frame_index + 1,
-        num_keyframes=state.num_keyframes + promote.to(torch.int32),
-        map_points=map_pts,
-        map_normals=map_nrm,
-        map_mask=map_mask,
-        map_hash=map_hash,
-        map_nrm_hash=map_nrm_hash,
-    )
-    diag = OdometryDiag(fitness=fitness, overlap=overlap, promoted=promote,
-                        num_corr=num_corr, nn_overflow=nn_overflow)
-    return new_state, diag
+        # ICP in the keyframe's camera frame, from the previous pose.
+        T0 = _relative(state.kf_pose, state.pose)
+        if cfg.map_budget > 0:
+            with span("odometry.track_map"):
+                T, num_corr, fitness, nn_overflow, src_mask = _track_map(state, src_pts, src_mask, T0, cfg)
+        else:
+            with span("odometry.track_keyframe"):
+                T, num_corr, fitness = _track_keyframe(state, src_pts, src_mask, T0, cfg)
+                nn_overflow = torch.zeros((), device=T.device)  # brute and fused scan the full cloud
+
+        with span("odometry.promote"):
+            denom = torch.clamp(torch.sum(src_mask, dtype=torch.int32), min=1)
+            overlap = num_corr.to(torch.float32) / denom.to(torch.float32)
+
+            # Back onto SE(3): the inverse(kf_pose) @ pose warm start doubles any
+            # off-manifold drift per frame.
+            new_pose = se3.orthonormalize_T(state.kf_pose @ T)
+
+            delta = se3.se3_log(T)
+            promote = (
+                (torch.linalg.vector_norm(delta[:3]) > cfg.kf_translation)
+                | (torch.linalg.vector_norm(delta[3:]) > cfg.kf_rotation)
+                | (overlap < cfg.kf_min_overlap)
+            )
+
+            map_pts, map_nrm, map_mask = state.map_points, state.map_normals, state.map_mask
+            map_hash, map_nrm_hash = state.map_hash, state.map_nrm_hash
+            if cfg.map_budget > 0 and bool(promote):
+                # The map re-anchors to the new keyframe and absorbs its cloud;
+                # with the hash engine this is the only place the hash is rebuilt.
+                inv_T = se3.inverse(T)
+                map_pts, map_nrm, map_mask = _fuse_map(
+                    se3.transform_points(inv_T, state.map_points),
+                    se3.rotate_points(inv_T, state.map_normals),
+                    state.map_mask,
+                    apply_mask(new_kf_pts, new_kf_mask),
+                    new_kf_norm,
+                    new_kf_mask,
+                    cfg,
+                )
+                if _use_hash(cfg):
+                    map_hash, map_nrm_hash = _build_map_hash(map_pts, map_nrm, map_mask, cfg)
+
+            new_state = OdometryState(
+                pose=new_pose,
+                kf_pose=torch.where(promote, new_pose, state.kf_pose),
+                kf_points=torch.where(promote, apply_mask(new_kf_pts, new_kf_mask), state.kf_points),
+                kf_normals=torch.where(promote, new_kf_norm, state.kf_normals),
+                kf_mask=torch.where(promote, new_kf_mask, state.kf_mask),
+                frame_index=state.frame_index + 1,
+                num_keyframes=state.num_keyframes + promote.to(torch.int32),
+                map_points=map_pts,
+                map_normals=map_nrm,
+                map_mask=map_mask,
+                map_hash=map_hash,
+                map_nrm_hash=map_nrm_hash,
+            )
+        diag = OdometryDiag(fitness=fitness, overlap=overlap, promoted=promote,
+                            num_corr=num_corr, nn_overflow=nn_overflow)
+        return new_state, diag
 
 
 def run_odometry(camera: PinholeCamera, depths, cfg: OdometryConfig = OdometryConfig()):

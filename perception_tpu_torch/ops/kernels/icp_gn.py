@@ -25,7 +25,6 @@ shapes and the card's SM count alone, never from device data.
 
 from __future__ import annotations
 
-import collections
 import ctypes
 import functools
 from typing import NamedTuple
@@ -37,6 +36,7 @@ from perception_tpu_torch.ops import nn as _nn
 from perception_tpu_torch.ops.icp import _huber_weight
 from perception_tpu_torch.ops.kernels.build import load_library, sm_count
 from perception_tpu_torch.ops.points import SENTINEL
+from perception_tpu_torch.utils.profiler import count_launch, counts_launches
 
 # Bounds the plain version's (R, N, chunk) distance temporaries; the
 # running strict '<' makes the chunking invisible in the result.
@@ -186,6 +186,7 @@ def _check(src8, tgtd, tn, Ts):
         raise ValueError("tgtd must be 16-byte aligned (the kernel reads float4 rows)")
 
 
+@counts_launches
 def gn_system_packed(src8, tgtd, tn, Ts, max_correspondence_distance: float,
                      huber_delta: float, return_stats: bool = False):
     """Fused GN systems from packed operands: (R, 8, 8) [and (R, 2) stats].
@@ -221,13 +222,8 @@ def gn_system_packed(src8, tgtd, tn, Ts, max_correspondence_distance: float,
                          stats.data_ptr(), stream)
         if err:
             raise RuntimeError(f"icp_gn kernel launch failed: CUDA error {err}")
-        gn_system_packed.launches += 1
-        gn_system_packed.launches_by_shape[(R, Np, Mp)] += 1
+        count_launch(gn_system_packed, (R, Np, Mp))
     return (M, stats) if return_stats else M
-
-
-gn_system_packed.launches = 0
-gn_system_packed.launches_by_shape = collections.Counter()
 
 
 def gn_system(src_t, src_mask, target, target_normals, target_mask,

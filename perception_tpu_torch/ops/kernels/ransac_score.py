@@ -14,7 +14,6 @@ shapes and the SM count alone.
 
 from __future__ import annotations
 
-import collections
 import ctypes
 import functools
 from typing import NamedTuple
@@ -22,6 +21,7 @@ from typing import NamedTuple
 import torch
 
 from perception_tpu_torch.ops.kernels.build import load_library, sm_count
+from perception_tpu_torch.utils.profiler import count_launch, counts_launches
 
 # Bounds the plain version's (B, chunk, K) temporaries; integer sums
 # make the chunking invisible in the result.
@@ -104,6 +104,7 @@ def _check(points, mask, hyp):
         raise ValueError("hyp must be 16-byte aligned (the kernel reads float4 rows)")
 
 
+@counts_launches
 def ransac_score(
     points: torch.Tensor, mask: torch.Tensor, hyp: torch.Tensor, threshold: float
 ) -> torch.Tensor:
@@ -131,10 +132,5 @@ def ransac_score(
                      CHUNK, HYPS_PER_BLOCK, plan.split_chunks, plan.splits, out.data_ptr(), stream)
     if err:
         raise RuntimeError(f"ransac_score kernel launch failed: CUDA error {err}")
-    ransac_score.launches += 1
-    ransac_score.launches_by_shape[(B, N, K)] += 1
+    count_launch(ransac_score, (B, N, K))
     return out
-
-
-ransac_score.launches = 0
-ransac_score.launches_by_shape = collections.Counter()

@@ -22,7 +22,6 @@ shapes and the card's SM count alone, never from device data.
 
 from __future__ import annotations
 
-import collections
 import ctypes
 import functools
 from typing import NamedTuple
@@ -30,6 +29,7 @@ from typing import NamedTuple
 import torch
 
 from perception_tpu_torch.ops.kernels.build import load_library, sm_count
+from perception_tpu_torch.utils.profiler import count_launch, counts_launches
 
 FAR = 4.0e12  # > (2 * SENTINEL)^2: "no candidate yet"
 _MAX_RBLK = 512  # the kernel's shared-memory stage
@@ -126,6 +126,7 @@ def _check(table, queries, start, nchunk, tile, R, rblk):
         raise ValueError("table must be 16-byte aligned (the kernel reads float4 rows)")
 
 
+@counts_launches
 def voxelhash_query(table, queries, start, nchunk, tile: int, R: int, rblk: int = 512):
     """Per-tile range nearest neighbour: (idx (Nqp,) int32, d2 (Nqp,) f32).
 
@@ -155,10 +156,5 @@ def voxelhash_query(table, queries, start, nchunk, tile: int, R: int, rblk: int 
                      part.data_ptr(), idx.data_ptr(), d2.data_ptr(), stream)
     if err:
         raise RuntimeError(f"voxelhash_query kernel launch failed: CUDA error {err}")
-    voxelhash_query.launches += 1
-    voxelhash_query.launches_by_shape[(nqp, table.shape[0])] += 1
+    count_launch(voxelhash_query, (nqp, table.shape[0]))
     return idx, d2
-
-
-voxelhash_query.launches = 0
-voxelhash_query.launches_by_shape = collections.Counter()
