@@ -14,8 +14,27 @@ def const(values, like: torch.Tensor) -> torch.Tensor:
     the card after its copy; this copies without that synchronisation.
     As an operand it also keeps a division a true float32 division on
     CUDA, where dividing by a Python float is a reciprocal multiply.
+
+    While the current stream captures a CUDA graph the constant is filled
+    on the device instead: a copy from pageable host memory cannot be
+    captured. Outside a capture the ops are the same as ever.
     """
+    if like.device.type == "cuda" and torch.cuda.is_current_stream_capturing():
+        return _filled(torch.tensor(values, dtype=like.dtype), like.device)
     return torch.tensor(values, dtype=like.dtype).to(like.device, non_blocking=True)
+
+
+def _filled(host: torch.Tensor, device) -> torch.Tensor:
+    """``host``'s values on ``device`` by fill kernels alone: one fill of
+    the first value, then one a differing element (``repr`` tells -0.0
+    from 0.0 and matches NaN with NaN)."""
+    vals = host.reshape(-1).tolist()
+    out = torch.full(host.shape, vals[0] if vals else 0, dtype=host.dtype, device=device)
+    flat = out.view(-1)
+    for i, v in enumerate(vals):
+        if repr(v) != repr(vals[0]):
+            flat[i].fill_(v)
+    return out
 
 
 def row(x: torch.Tensor, i: torch.Tensor) -> torch.Tensor:

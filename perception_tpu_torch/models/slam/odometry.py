@@ -12,14 +12,16 @@ Engines, as ``OdometryConfig`` selects them:
 
 - keyframe mode, ``fused_gn`` "auto"/"off": the op graph with brute NN
   (``ops/nn.py``); "on": the fused GN kernel K2
-  (``ops/kernels/icp_gn.py``) once per iteration;
+  (``ops/kernels/icp_gn.py``) once per iteration, the whole loop
+  replayed on the card as one CUDA graph (``_GNGraph``);
 - map mode, ``map_nn`` "auto"/"shortlist": one top-k NN pass per frame,
   then k-candidate argmins and an exact brute polish; "brute": brute NN
   every iteration; "hash": the persistent voxel hash
   (``ops/voxelhash.py``, kernel K3+K4) once per iteration and once for
   the final stats.
 
-The JAX package jits the whole step. Here it runs eagerly: ``lax.scan``
+The JAX package jits the whole step. Here it runs eagerly, but for that
+one graph: ``lax.scan``
 is a Python loop, ``lax.approx_max_k`` is ``torch.topk`` (exact, as
 JAX's is on the CPU), and the ``lax.cond`` that fuses the map on a
 promotion is a Python ``if`` on one host read of ``promote`` per frame,
@@ -41,6 +43,7 @@ rounding.
 from __future__ import annotations
 
 import dataclasses
+from collections import Counter
 from typing import NamedTuple, Tuple
 
 import torch
@@ -59,7 +62,7 @@ from perception_tpu_torch.ops.points import (
     compact_with_attrs,
     voxel_downsample_with_attrs,
 )
-from perception_tpu_torch.utils.profiler import span
+from perception_tpu_torch.utils.profiler import count_launch, span, tallied
 
 SHORTLIST_TILE = 4096  # map columns of the shortlist's distance matrix built at a time
 
@@ -488,25 +491,91 @@ def _track_map(state: OdometryState, src_pts, src_mask, T0, cfg: OdometryConfig)
     return T, num_corr, fitness, nn_overflow, src_mask
 
 
+def _fused_gn(src_pts, src_mask, kf_points, kf_normals, kf_mask, T, cfg: OdometryConfig):
+    """Keyframe mode's GN loop on K2: (T, num_corr, fitness). Operands
+    packed once; each iteration passes only the pose. The stats describe
+    the start of the final iteration, as in the JAX package (one iteration
+    stale, equal at convergence). Nothing reads back to the host and the
+    config fixes every shape, so on the card ``_GNGraph`` captures it."""
+    src8 = pack_source(src_pts[None], src_mask[None])
+    tgtd, tnrm8 = pack_target(kf_points, kf_normals, kf_mask)
+    eye6 = cfg.damping * torch.eye(6, device=T.device)
+    ngate = gd2 = torch.zeros((), device=T.device)
+    for _ in range(cfg.icp_iterations):
+        M, stats = gn_system_packed(src8, tgtd, tnrm8, T[None], cfg.max_correspondence_distance,
+                                    cfg.huber_delta, return_stats=True)
+        xi = torch.linalg.solve_ex(M[0, :6, :6] + eye6, -M[0, :6, 6:7])[0][:, 0]
+        T = se3.se3_exp(xi) @ T
+        ngate, gd2 = stats[0, 0], stats[0, 1]
+    return T, ngate.to(torch.int32), gd2 / torch.clamp(ngate, min=1.0)
+
+
+class _GNGraph:
+    """``_fused_gn`` captured once as a CUDA graph at one key: static
+    inputs that each call's tensors are copied into, and static outputs
+    that each replay overwrites and that leave only as clones, so no
+    returned tensor aliases the next replay's. The replay runs the
+    captured kernels with the eager loop's launch plans, in its order, so
+    its results equal the eager loop's bit for bit. The launches that
+    ``count_launch`` saw during the capture (``tally``) are counted again
+    at each replay. One graph serves one thread at a time: two threads
+    sharing a key would share its buffers."""
+
+    def __init__(self, inputs, cfg: OdometryConfig):
+        self.inputs = [torch.empty_like(t) for t in inputs]
+        self.device = inputs[0].device
+        self.graph = torch.cuda.CUDAGraph()
+        # thread_local: another thread's CUDA calls meanwhile are not the capture's concern.
+        with torch.cuda.device(self.device), tallied() as self.tally, torch.cuda.graph(
+                self.graph, capture_error_mode="thread_local"):
+            self.outputs = _fused_gn(*self.inputs, cfg)
+        # The (1, Np, Mp) the capture launched K2 at; raises if it launched none.
+        (self.shape,) = {shape for wrapper, shape in self.tally if wrapper is gn_system_packed}
+
+    def __call__(self, inputs):
+        with torch.cuda.device(self.device):
+            for dst, src in zip(self.inputs, inputs):
+                dst.copy_(src)
+            self.graph.replay()
+            for (wrapper, shape), n in self.tally.items():
+                count_launch(wrapper, shape, n)
+            return tuple(t.clone() for t in self.outputs)
+
+
+_GN_GRAPHS = {}  # _gn_key -> _GNGraph
+
+
+def _gn_key(inputs, cfg: OdometryConfig):
+    """What a captured ``_fused_gn`` depends on: the device, the operands'
+    shapes, the loop's numbers and the TF32 flags its products ran under."""
+    return (inputs[0].device, tuple(tuple(t.shape) for t in inputs), cfg.icp_iterations,
+            cfg.max_correspondence_distance, cfg.huber_delta, cfg.damping,
+            torch.backends.cuda.matmul.allow_tf32, torch.backends.cudnn.allow_tf32)
+
+
 def _track_keyframe(state: OdometryState, src_pts, src_mask, T0, cfg: OdometryConfig):
     """Keyframe mode: GN against the keyframe cloud, through K2 when
-    ``fused_gn == "on"``. Returns (T, num_corr, fitness)."""
-    T = T0
+    ``fused_gn == "on"``. Returns (T, num_corr, fitness).
+
+    On CUDA tensors the fused loop's first call at a key runs eagerly and
+    then captures the loop (``_track_keyframe.captures``, by the (1, Np,
+    Mp) the capture launched K2 at); later calls replay the capture
+    (``_track_keyframe.replays``), each counting the K2 launches its
+    capture recorded. CPU tensors run it eagerly."""
     if cfg.fused_gn == "on":
-        # Operands packed once; each iteration passes only the pose. The
-        # stats describe the start of the final iteration, as in the JAX
-        # package (one iteration stale, equal at convergence).
-        src8 = pack_source(src_pts[None], src_mask[None])
-        tgtd, tnrm8 = pack_target(state.kf_points, state.kf_normals, state.kf_mask)
-        eye6 = cfg.damping * torch.eye(6, device=T.device)
-        ngate = gd2 = torch.zeros((), device=T.device)
-        for _ in range(cfg.icp_iterations):
-            M, stats = gn_system_packed(src8, tgtd, tnrm8, T[None], cfg.max_correspondence_distance,
-                                        cfg.huber_delta, return_stats=True)
-            xi = torch.linalg.solve_ex(M[0, :6, :6] + eye6, -M[0, :6, 6:7])[0][:, 0]
-            T = se3.se3_exp(xi) @ T
-            ngate, gd2 = stats[0, 0], stats[0, 1]
-        return T, ngate.to(torch.int32), gd2 / torch.clamp(ngate, min=1.0)
+        inputs = (src_pts, src_mask, state.kf_points, state.kf_normals, state.kf_mask, T0)
+        if src_pts.device.type != "cuda":
+            return _fused_gn(*inputs, cfg)
+        key = _gn_key(inputs, cfg)
+        graph = _GN_GRAPHS.get(key)
+        if graph is None:
+            out = _fused_gn(*inputs, cfg)
+            _GN_GRAPHS[key] = graph = _GNGraph(inputs, cfg)
+            _track_keyframe.captures[graph.shape] += 1
+            return out
+        out = graph(inputs)
+        _track_keyframe.replays[graph.shape] += 1
+        return out
 
     max_d2 = cfg.max_correspondence_distance**2
 
@@ -515,12 +584,17 @@ def _track_keyframe(state: OdometryState, src_pts, src_mask, T0, cfg: OdometryCo
         idx, d2 = _nn.nearest_neighbor(src_t, state.kf_points, state.kf_mask)
         return src_t, idx, d2, src_mask & (d2 <= max_d2)
 
+    T = T0
     for _ in range(cfg.icp_iterations):
         src_t, idx, _, gate = correspondences(T)
         T = _gn_update(T, src_t, state.kf_points[idx], state.kf_normals[idx], gate, cfg)
     _, _, d2, gate = correspondences(T)
     num_corr = torch.sum(gate, dtype=torch.int32)
     return T, num_corr, torch.sum(d2 * gate) / torch.clamp(num_corr.to(d2.dtype), min=1.0)
+
+
+_track_keyframe.captures = Counter()  # fused loops captured, by the (1, Np, Mp) K2 was captured at
+_track_keyframe.replays = Counter()   # and replayed
 
 
 @fp32()

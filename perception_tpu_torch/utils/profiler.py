@@ -21,7 +21,9 @@ The port's own additions, none of them in the JAX package:
     ``spans_dropped``), stamped with ``time.perf_counter``;
   * ``counts_launches`` / ``count_launch``: the hand-written kernels'
     launch counters (``<wrapper>.launches``, ``<wrapper>.launches_by_shape``),
-    which also add each launch to the innermost recording span.
+    which also add each launch to the innermost recording span, and
+    ``tallied``, a block whose launches go into a tally instead (a CUDA
+    graph's capture; each replay counts the tally).
 """
 
 from __future__ import annotations
@@ -255,12 +257,31 @@ def counts_launches(wrapper):
     return wrapper
 
 
-def count_launch(wrapper, shape) -> None:
-    """Count one launch of ``wrapper``'s kernel at ``shape``, also in the
-    innermost recording span's ``launches`` under the wrapper's name."""
-    wrapper.launches += 1
-    wrapper.launches_by_shape[shape] += 1
+def count_launch(wrapper, shape, n: int = 1) -> None:
+    """Count ``n`` launches of ``wrapper``'s kernel at ``shape``, also in
+    the innermost recording span's ``launches`` under the wrapper's name;
+    inside a ``tallied`` block, into its tally alone."""
+    tally = getattr(_open, "tally", None)
+    if tally is not None:
+        tally[wrapper, shape] += n
+        return
+    wrapper.launches += n
+    wrapper.launches_by_shape[shape] += n
     stack = getattr(_open, "stack", None)
     if stack:
         launches = stack[-1].launches
-        launches[wrapper.__name__] = launches.get(wrapper.__name__, 0) + 1
+        launches[wrapper.__name__] = launches.get(wrapper.__name__, 0) + n
+
+
+@contextlib.contextmanager
+def tallied():
+    """A Counter of the launches ``count_launch`` sees on this thread
+    inside the block, by (wrapper, shape), which it counts nowhere else:
+    a CUDA graph's capture records launches without running them, and each
+    replay counts what its capture recorded."""
+    saved = getattr(_open, "tally", None)
+    _open.tally = tally = Counter()
+    try:
+        yield tally
+    finally:
+        _open.tally = saved

@@ -9,7 +9,10 @@ device's idle share while the host was inside it and the kernels it
 launched; the root spans' host ms a unit against the harness's
 ``entry_s`` a unit; and every device idle gap of at least ``--gap-ms``,
 named by the innermost span holding it, with that span's wall, CPU time
-and switches. ``--json`` writes the same, and every long unit's stages.
+and switches; and keyframe odometry's fused-loop CUDA graphs
+(``_track_keyframe.captures`` and ``.replays`` by K2's (1, Np, Mp), in
+all and inside the window), which show the graph engaged. ``--json``
+writes the same, and every long unit's stages.
 
 Needs a CUDA card. Run from the repository root:
 ``python3 tools_torch/span_breakdown.py --workload odom.live_kf32k --seed 7 [--seconds 10] [--json PATH]``
@@ -34,8 +37,17 @@ from perfbench.systems.record import Window, now  # noqa: E402
 from perception_tpu_torch.utils import profiler  # noqa: E402
 
 
+def track_graphs() -> dict:
+    """Keyframe odometry's fused-loop graphs so far: captures and replays
+    by K2's (1, Np, Mp)."""
+    from perception_tpu_torch.models.slam.odometry import _track_keyframe
+
+    return {"captures": dict(_track_keyframe.captures), "replays": dict(_track_keyframe.replays)}
+
+
 def traced_window(cell: str, seed: int, seconds: float):
-    """(window, device ops on the host clock, the window's spans)."""
+    """(window, device ops on the host clock, the window's spans, the
+    graphs' counts before and after the window)."""
     _, _, config, traffic = harness.cell_spec(cell)
     device = torch.device("cuda", 0)
     sut = importlib.import_module(f"perfbench.systems.{config['system']}").Cell(config, traffic, seed, device)
@@ -43,6 +55,7 @@ def traced_window(cell: str, seed: int, seconds: float):
     torch.cuda.synchronize(device)
     profiler.clear_spans()
     rec = Window()
+    graphs = track_graphs()
     with profile(activities=[ProfilerActivity.CUDA]) as prof:
         torch.cuda.synchronize(device)
         marker = now()
@@ -50,7 +63,7 @@ def traced_window(cell: str, seed: int, seconds: float):
         sut.window(seconds, rec)
         torch.cuda.synchronize(device)
     ops = tr.clip(tr.kineto_ops(prof, marker), rec.start, rec.end)
-    return rec, ops, [s for s in profiler.spans() if rec.start <= s.t0 < rec.end]
+    return rec, ops, [s for s in profiler.spans() if rec.start <= s.t0 < rec.end], (graphs, track_graphs())
 
 
 def innermost(records, t: float):
@@ -59,7 +72,19 @@ def innermost(records, t: float):
     return min(holding, key=lambda s: s.t1 - s.t0) if holding else None
 
 
-def breakdown(rec, ops, records, gap_ms: float) -> dict:
+def graph_counts(before: dict, after: dict) -> dict:
+    """The graphs' captures and replays in all and inside the window, by
+    shape written as "1x8192x32768"."""
+    def keyed(counts):
+        return {"x".join(map(str, k)): v for k, v in counts.items()}
+
+    return {kind: {"total": keyed(after[kind]),
+                   "window": keyed({k: v - before[kind].get(k, 0) for k, v in after[kind].items()
+                                    if v != before[kind].get(k, 0)})}
+            for kind in ("captures", "replays")}
+
+
+def breakdown(rec, ops, records, graphs, gap_ms: float) -> dict:
     union = sp.merged(ops)
     starts = [a for a, _ in union]
     units = rec.units
@@ -106,7 +131,8 @@ def breakdown(rec, ops, records, gap_ms: float) -> dict:
             "largest_child_share": child_share,
             "root_wall_ms": {"median": statistics.median(walls), "max": walls[-1],
                              "p95": statistics.quantiles(walls, n=100, method="inclusive")[94] if len(walls) > 1 else walls[0]},
-            "stages": stages, "stalls": stalls, "long_units": long_units}
+            "stages": stages, "track_graphs": graph_counts(*graphs), "stalls": stalls,
+            "long_units": long_units}
 
 
 def main(argv=None) -> int:
