@@ -464,8 +464,9 @@ def _track_map(state: OdometryState, src_pts, src_mask, T0, cfg: OdometryConfig)
         # permutation-invariant, so the sorted copies replace the source.
         vh = state.map_hash
         map_pts_nn, nrm_sorted = vh.points, state.map_nrm_hash
-        _, src_order = voxelhash.sort_by_cell(vh, se3.transform_points(T0, src_pts))
-        src_pts, src_mask = src_pts[src_order], src_mask[src_order]
+        with span("odometry.map_sort"):
+            _, src_order = voxelhash.sort_by_cell(vh, se3.transform_points(T0, src_pts))
+            src_pts, src_mask = src_pts[src_order], src_mask[src_order]
 
         def nn_query(src_t):
             return voxelhash.query(vh, src_t, sort=False)
@@ -596,6 +597,11 @@ def _track_keyframe(state: OdometryState, src_pts, src_mask, T0, cfg: OdometryCo
 _track_keyframe.captures = Counter()  # fused loops captured, by the (1, Np, Mp) K2 was captured at
 _track_keyframe.replays = Counter()   # and replayed
 
+# Map mode's updates on the host since import, beside K3+K4's
+# ``voxelhash_query.launches``: "fuses" (promotions fused into the map by
+# ``odometry_step``) and "hash_builds" (hash rebuilds after them).
+map_updates = Counter()
+
 
 @fp32()
 def odometry_step(
@@ -642,21 +648,30 @@ def odometry_step(
 
             map_pts, map_nrm, map_mask = state.map_points, state.map_normals, state.map_mask
             map_hash, map_nrm_hash = state.map_hash, state.map_nrm_hash
-            if cfg.map_budget > 0 and bool(promote):
+            fuse = False
+            if cfg.map_budget > 0:
+                # The step's one wait for the card: the device drains here.
+                with span("odometry.map_promote_read"):
+                    fuse = bool(promote)
+            if fuse:
                 # The map re-anchors to the new keyframe and absorbs its cloud;
                 # with the hash engine this is the only place the hash is rebuilt.
-                inv_T = se3.inverse(T)
-                map_pts, map_nrm, map_mask = _fuse_map(
-                    se3.transform_points(inv_T, state.map_points),
-                    se3.rotate_points(inv_T, state.map_normals),
-                    state.map_mask,
-                    apply_mask(new_kf_pts, new_kf_mask),
-                    new_kf_norm,
-                    new_kf_mask,
-                    cfg,
-                )
-                if _use_hash(cfg):
-                    map_hash, map_nrm_hash = _build_map_hash(map_pts, map_nrm, map_mask, cfg)
+                with span("odometry.map_fuse"):
+                    inv_T = se3.inverse(T)
+                    map_pts, map_nrm, map_mask = _fuse_map(
+                        se3.transform_points(inv_T, state.map_points),
+                        se3.rotate_points(inv_T, state.map_normals),
+                        state.map_mask,
+                        apply_mask(new_kf_pts, new_kf_mask),
+                        new_kf_norm,
+                        new_kf_mask,
+                        cfg,
+                    )
+                    map_updates["fuses"] += 1
+                    if _use_hash(cfg):
+                        with span("odometry.map_hash_build"):
+                            map_hash, map_nrm_hash = _build_map_hash(map_pts, map_nrm, map_mask, cfg)
+                        map_updates["hash_builds"] += 1
 
             new_state = OdometryState(
                 pose=new_pose,

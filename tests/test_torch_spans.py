@@ -3,7 +3,9 @@
 On the CPU: with no ``torch.profiler`` active a span records nothing and
 the cuboid and odometry entries give bit-equal outputs with and without
 an active profiler; with one active, each call into an entry leaves one
-root span and its stages' spans, nested by ``parent`` and sharing one
+root span and its stages' spans (in map mode also the source sort, the
+``promote`` read and, on a promotion, the fuse and the hash rebuild below
+them), nested by ``parent`` and sharing one
 ``unit``, children inside their parent, ``0 <= cpu_s <= t1 - t0`` (up to
 one step of the thread's CPU clock, 10 ms on a host that counts CPU time
 by scheduler ticks, as the card's host does), on ``time.perf_counter``;
@@ -46,6 +48,9 @@ _spec.loader.exec_module(small_cells)
 CUBOID = ("cuboid.pipeline", ("cuboid.segment_ground_plane", "cuboid.box_filter", "cuboid.estimate_cuboid_pose"))
 KEYFRAME = ("odometry.step", ("odometry.frame_features", "odometry.track_keyframe", "odometry.promote"))
 MAP = ("odometry.step", ("odometry.frame_features", "odometry.track_map", "odometry.promote"))
+# Map mode's spans below the stages: every step's, and a promotion's.
+MAP_INNER = ("odometry.map_sort", "odometry.map_promote_read")
+MAP_FUSE = ("odometry.map_fuse", "odometry.map_hash_build")
 MAP_SETTINGS = {"map_budget": 2048, "map_nn": "hash"}
 
 
@@ -138,11 +143,14 @@ def check_calls(records, root, children, calls):
 @pytest.mark.parametrize("kind, names", [("cuboid", CUBOID), ("keyframe", KEYFRAME), ("map", MAP)])
 def test_spans_nest_by_call(cells, fresh, kind, names):
     cell = cells[kind]
-    profiled(lambda: [call(cell, i) for i in range(2)])
+    outs = profiled(lambda: [call(cell, i) for i in range(2)])
     records = profiler.spans()
     roots = check_calls(records, *names, calls=2)
     assert roots[0].t1 <= roots[1].t0
-    assert {s.name for s in records} == {names[0], *names[1]}
+    inner = ()
+    if kind == "map":
+        inner = MAP_INNER + (MAP_FUSE if any(bool(diag.promoted) for _, diag in outs) else ())
+    assert {s.name for s in records} == {names[0], *names[1], *inner}
     assert all(s.launches == {} for s in records)  # the CPU takes the kernels' plain versions
     if profiler._RUSAGE_THREAD is not None:
         assert all(isinstance(s.nivcsw, int) and s.nivcsw >= 0 for s in records)
