@@ -13,15 +13,16 @@ Engines, as ``OdometryConfig`` selects them:
 - keyframe mode, ``fused_gn`` "auto"/"off": the op graph with brute NN
   (``ops/nn.py``); "on": the fused GN kernel K2
   (``ops/kernels/icp_gn.py``) once per iteration, the whole loop
-  replayed on the card as one CUDA graph (``_GNGraph``);
+  replayed on the card as one CUDA graph (``_Graph``);
 - map mode, ``map_nn`` "auto"/"shortlist": one top-k NN pass per frame,
   then k-candidate argmins and an exact brute polish; "brute": brute NN
   every iteration; "hash": the persistent voxel hash
   (``ops/voxelhash.py``, kernel K3+K4) once per iteration and once for
-  the final stats.
+  the final stats, the iterations and the stats replayed on the card as
+  one CUDA graph after the source's eager cell sort.
 
-The JAX package jits the whole step. Here it runs eagerly, but for that
-one graph: ``lax.scan``
+The JAX package jits the whole step. Here it runs eagerly, but for those
+two graphs: ``lax.scan``
 is a Python loop, ``lax.approx_max_k`` is ``torch.topk`` (exact, as
 JAX's is on the CPU), and the ``lax.cond`` that fuses the map on a
 promotion is a Python ``if`` on one host read of ``promote`` per frame,
@@ -55,6 +56,7 @@ from perception_tpu_torch.ops import nn as _nn
 from perception_tpu_torch.ops import voxelhash
 from perception_tpu_torch.ops.icp import _huber_weight
 from perception_tpu_torch.ops.kernels.icp_gn import gn_system_packed, pack_source, pack_target
+from perception_tpu_torch.ops.kernels.voxelhash_query import voxelhash_query
 from perception_tpu_torch.ops.normals import normals_from_depth
 from perception_tpu_torch.ops.points import (
     SENTINEL,
@@ -399,23 +401,60 @@ def _shortlist_nn(src_t, cand_idx, cand_pts):
     return torch.gather(cand_idx, 1, j)[:, 0], torch.gather(d2k, 1, j)[:, 0]
 
 
+def _map_gn_iter(T, query_fn, pts, mask, map_pts_nn, nrm_sorted, cfg: OdometryConfig):
+    """One map-mode GN update: pose the source, query its nearest map
+    points, gate them at ``map_nn_radius``, update."""
+    src_t = _posed(T, pts)
+    idx, d2 = query_fn(src_t)
+    gate = mask & (d2 <= cfg.map_nn_radius**2)
+    return _gn_update(T, src_t, map_pts_nn[idx], nrm_sorted[idx], gate, cfg)
+
+
+def _map_solve(T, src_pts, src_mask, map_pts_nn, nrm_sorted, nn_query, nn_query_stats, cfg: OdometryConfig):
+    """The hash and brute engines' solve: ``icp_iterations`` GN updates,
+    each on a fresh query, then one stats query at the solved pose:
+    (T, num_corr, fitness, nn_overflow)."""
+    for _ in range(cfg.icp_iterations):
+        T = _map_gn_iter(T, nn_query, src_pts, src_mask, map_pts_nn, nrm_sorted, cfg)
+    _, d2, nn_overflow = nn_query_stats(se3.transform_points(T, src_pts))
+    gate = src_mask & (d2 <= cfg.map_nn_radius**2)
+    num_corr = torch.sum(gate, dtype=torch.int32)
+    fitness = torch.sum(torch.where(gate, d2, 0.0)) / torch.clamp(num_corr.to(torch.float32), min=1.0)
+    return T, num_corr, fitness, nn_overflow
+
+
+def _hash_solve(src_pts, src_mask, T0, table, points, cell_ids, origin, cell_size, dims, nrm_hash,
+                cfg: OdometryConfig):
+    """``_map_solve`` on the voxel hash (K3+K4), the source already in
+    cell order: a function of tensors alone, with no read back to the
+    host and every shape fixed by its inputs, so on the card
+    ``_track_map`` captures it. The hash comes as the fields the query
+    reads; it reads neither ``sentinel_id`` nor ``order``."""
+    vh = voxelhash.VoxelHash(points=points, table=table, cell_ids=cell_ids, origin=origin,
+                             cell_size=cell_size, dims=dims, sentinel_id=None, order=None)
+    return _map_solve(T0, src_pts, src_mask, points, nrm_hash,
+                      lambda q: voxelhash.query(vh, q, sort=False),
+                      lambda q: voxelhash.query(vh, q, sort=False, return_stats=True), cfg)
+
+
 def _track_map(state: OdometryState, src_pts, src_mask, T0, cfg: OdometryConfig):
     """Map mode: GN against the fused map with the configured engine.
-    Returns (T, num_corr, fitness, nn_overflow, src_mask)."""
-    engine = _map_engine(cfg)
-    r2 = cfg.map_nn_radius**2
-    zero = torch.zeros((), device=src_pts.device)
+    Returns (T, num_corr, fitness, nn_overflow, src_mask).
 
-    def gn_iter(T, query_fn, pts, mask, map_pts_nn, nrm_sorted):
-        src_t = _posed(T, pts)
-        idx, d2 = query_fn(src_t)
-        gate = mask & (d2 <= r2)
-        return _gn_update(T, src_t, map_pts_nn[idx], nrm_sorted[idx], gate, cfg)
+    With the hash engine on CUDA tensors, the solve after the source's
+    cell sort (``_hash_solve``) runs through ``_captured``: a key's first
+    call runs eagerly and then captures it (``_track_map.captures``, by
+    K3+K4's (padded queries, table rows)), later calls replay it
+    (``_track_map.replays``). The other engines, and CPU tensors, run
+    eagerly."""
+    engine = _map_engine(cfg)
 
     if engine == "shortlist":
         # One top-k pass under the warm start; each fast iteration then
         # argmins over its k candidates, and the exact brute polish ends
         # the solve (stats from its last iteration, one iteration stale).
+        r2 = cfg.map_nn_radius**2
+        zero = torch.zeros((), device=src_pts.device)
         map_masked = apply_mask(state.map_points, state.map_mask)
         map_sq = _sq_norm(map_masked)
         stride = max(cfg.map_nn_coarse, 1)
@@ -437,7 +476,7 @@ def _track_map(state: OdometryState, src_pts, src_mask, T0, cfg: OdometryConfig)
         for s, length in enumerate(per):
             q = nn_query if s == 0 else shortlist_query(*build_shortlist(T))
             for _ in range(length):
-                T = gn_iter(T, q, src_fast, mask_fast, state.map_points, state.map_normals)
+                T = _map_gn_iter(T, q, src_fast, mask_fast, state.map_points, state.map_normals, cfg)
 
         n_fast_valid = torch.clamp(torch.sum(mask_fast), min=1).to(torch.float32)
         gd2 = nn_overflow = zero
@@ -463,33 +502,24 @@ def _track_map(state: OdometryState, src_pts, src_mask, T0, cfg: OdometryConfig)
         # start; the iterations keep that order (sort=False), and sums are
         # permutation-invariant, so the sorted copies replace the source.
         vh = state.map_hash
-        map_pts_nn, nrm_sorted = vh.points, state.map_nrm_hash
         with span("odometry.map_sort"):
             _, src_order = voxelhash.sort_by_cell(vh, se3.transform_points(T0, src_pts))
             src_pts, src_mask = src_pts[src_order], src_mask[src_order]
+        # The hash is rebuilt on every promotion, so a replay copies it in.
+        inputs = (src_pts, src_mask, T0, vh.table, vh.points, vh.cell_ids, vh.origin, vh.cell_size, vh.dims,
+                  state.map_nrm_hash)
+        if src_pts.device.type != "cuda":
+            return (*_hash_solve(*inputs, cfg), src_mask)
+        return (*_captured(_track_map, _hash_solve, inputs, cfg, voxelhash_query, cfg.icp_iterations,
+                           cfg.map_nn_radius, cfg.huber_delta, cfg.damping), src_mask)
 
-        def nn_query(src_t):
-            return voxelhash.query(vh, src_t, sort=False)
+    map_pts_nn = apply_mask(state.map_points, state.map_mask)
 
-        def nn_query_stats(src_t):
-            return voxelhash.query(vh, src_t, sort=False, return_stats=True)
-    else:
-        map_pts_nn, nrm_sorted = apply_mask(state.map_points, state.map_mask), state.map_normals
+    def nn_query(src_t):
+        return _nn.nearest_neighbor(src_t, map_pts_nn, state.map_mask)
 
-        def nn_query(src_t):
-            return _nn.nearest_neighbor(src_t, map_pts_nn, state.map_mask)
-
-        def nn_query_stats(src_t):
-            return (*nn_query(src_t), zero)
-
-    T = T0
-    for _ in range(cfg.icp_iterations):
-        T = gn_iter(T, nn_query, src_pts, src_mask, map_pts_nn, nrm_sorted)
-    _, d2, nn_overflow = nn_query_stats(se3.transform_points(T, src_pts))
-    gate = src_mask & (d2 <= r2)
-    num_corr = torch.sum(gate, dtype=torch.int32)
-    fitness = torch.sum(torch.where(gate, d2, 0.0)) / torch.clamp(num_corr.to(torch.float32), min=1.0)
-    return T, num_corr, fitness, nn_overflow, src_mask
+    return (*_map_solve(T0, src_pts, src_mask, map_pts_nn, state.map_normals, nn_query,
+                        lambda src_t: (*nn_query(src_t), torch.zeros((), device=src_t.device)), cfg), src_mask)
 
 
 def _fused_gn(src_pts, src_mask, kf_points, kf_normals, kf_mask, T, cfg: OdometryConfig):
@@ -497,7 +527,7 @@ def _fused_gn(src_pts, src_mask, kf_points, kf_normals, kf_mask, T, cfg: Odometr
     packed once; each iteration passes only the pose. The stats describe
     the start of the final iteration, as in the JAX package (one iteration
     stale, equal at convergence). Nothing reads back to the host and the
-    config fixes every shape, so on the card ``_GNGraph`` captures it."""
+    config fixes every shape, so on the card ``_track_keyframe`` captures it."""
     src8 = pack_source(src_pts[None], src_mask[None])
     tgtd, tnrm8 = pack_target(kf_points, kf_normals, kf_mask)
     eye6 = cfg.damping * torch.eye(6, device=T.device)
@@ -511,27 +541,29 @@ def _fused_gn(src_pts, src_mask, kf_points, kf_normals, kf_mask, T, cfg: Odometr
     return T, ngate.to(torch.int32), gd2 / torch.clamp(ngate, min=1.0)
 
 
-class _GNGraph:
-    """``_fused_gn`` captured once as a CUDA graph at one key: static
-    inputs that each call's tensors are copied into, and static outputs
-    that each replay overwrites and that leave only as clones, so no
-    returned tensor aliases the next replay's. The replay runs the
-    captured kernels with the eager loop's launch plans, in its order, so
-    its results equal the eager loop's bit for bit. The launches that
-    ``count_launch`` saw during the capture (``tally``) are counted again
-    at each replay. One graph serves one thread at a time: two threads
-    sharing a key would share its buffers."""
+class _Graph:
+    """``fn(*inputs, cfg)``, a function of tensors that reads nothing back
+    to the host and whose shapes its inputs fix, captured once as a CUDA
+    graph: static inputs that each call's tensors are copied into, and
+    static outputs that each replay overwrites and that leave only as
+    clones, so no returned tensor aliases the next replay's. The replay
+    runs the captured kernels with the eager call's launch plans, in its
+    order, so its results equal the eager call's bit for bit. The
+    launches that ``count_launch`` saw during the capture (``tally``) are
+    counted again at each replay; ``shape`` is the one shape the capture
+    launched ``wrapper`` at. One graph serves one thread at a time: two
+    threads sharing a key would share its buffers."""
 
-    def __init__(self, inputs, cfg: OdometryConfig):
+    def __init__(self, fn, inputs, cfg: OdometryConfig, wrapper):
         self.inputs = [torch.empty_like(t) for t in inputs]
         self.device = inputs[0].device
         self.graph = torch.cuda.CUDAGraph()
         # thread_local: another thread's CUDA calls meanwhile are not the capture's concern.
         with torch.cuda.device(self.device), tallied() as self.tally, torch.cuda.graph(
                 self.graph, capture_error_mode="thread_local"):
-            self.outputs = _fused_gn(*self.inputs, cfg)
-        # The (1, Np, Mp) the capture launched K2 at; raises if it launched none.
-        (self.shape,) = {shape for wrapper, shape in self.tally if wrapper is gn_system_packed}
+            self.outputs = fn(*self.inputs, cfg)
+        # Raises if the capture launched ``wrapper`` at no shape, or at two.
+        (self.shape,) = {shape for launched, shape in self.tally if launched is wrapper}
 
     def __call__(self, inputs):
         with torch.cuda.device(self.device):
@@ -543,15 +575,33 @@ class _GNGraph:
             return tuple(t.clone() for t in self.outputs)
 
 
-_GN_GRAPHS = {}  # _gn_key -> _GNGraph
+_GRAPHS = {}  # _graph_key -> _Graph
 
 
-def _gn_key(inputs, cfg: OdometryConfig):
-    """What a captured ``_fused_gn`` depends on: the device, the operands'
-    shapes, the loop's numbers and the TF32 flags its products ran under."""
-    return (inputs[0].device, tuple(tuple(t.shape) for t in inputs), cfg.icp_iterations,
-            cfg.max_correspondence_distance, cfg.huber_delta, cfg.damping,
+def _graph_key(fn, inputs, *numbers):
+    """What a captured ``fn`` depends on: the device, the inputs' shapes
+    and dtypes, the config's numbers it reads and the TF32 flags its
+    products ran under."""
+    return (fn, inputs[0].device, tuple((tuple(t.shape), t.dtype) for t in inputs), *numbers,
             torch.backends.cuda.matmul.allow_tf32, torch.backends.cudnn.allow_tf32)
+
+
+def _captured(track, fn, inputs, cfg: OdometryConfig, wrapper, *numbers):
+    """``fn(*inputs, cfg)`` on CUDA tensors through the graph at its key,
+    ``numbers`` being the config's numbers ``fn`` reads: the key's first
+    call runs eagerly and then captures ``fn`` (``track.captures``, by
+    the shape the capture launched ``wrapper`` at); later calls replay
+    it (``track.replays``)."""
+    key = _graph_key(fn, inputs, *numbers)
+    graph = _GRAPHS.get(key)
+    if graph is None:
+        out = fn(*inputs, cfg)
+        _GRAPHS[key] = graph = _Graph(fn, inputs, cfg, wrapper)
+        track.captures[graph.shape] += 1
+        return out
+    out = graph(inputs)
+    track.replays[graph.shape] += 1
+    return out
 
 
 def _track_keyframe(state: OdometryState, src_pts, src_mask, T0, cfg: OdometryConfig):
@@ -567,16 +617,8 @@ def _track_keyframe(state: OdometryState, src_pts, src_mask, T0, cfg: OdometryCo
         inputs = (src_pts, src_mask, state.kf_points, state.kf_normals, state.kf_mask, T0)
         if src_pts.device.type != "cuda":
             return _fused_gn(*inputs, cfg)
-        key = _gn_key(inputs, cfg)
-        graph = _GN_GRAPHS.get(key)
-        if graph is None:
-            out = _fused_gn(*inputs, cfg)
-            _GN_GRAPHS[key] = graph = _GNGraph(inputs, cfg)
-            _track_keyframe.captures[graph.shape] += 1
-            return out
-        out = graph(inputs)
-        _track_keyframe.replays[graph.shape] += 1
-        return out
+        return _captured(_track_keyframe, _fused_gn, inputs, cfg, gn_system_packed, cfg.icp_iterations,
+                         cfg.max_correspondence_distance, cfg.huber_delta, cfg.damping)
 
     max_d2 = cfg.max_correspondence_distance**2
 
@@ -596,6 +638,8 @@ def _track_keyframe(state: OdometryState, src_pts, src_mask, T0, cfg: OdometryCo
 
 _track_keyframe.captures = Counter()  # fused loops captured, by the (1, Np, Mp) K2 was captured at
 _track_keyframe.replays = Counter()   # and replayed
+_track_map.captures = Counter()  # hash solves captured, by K3+K4's (padded queries, table rows)
+_track_map.replays = Counter()   # and replayed
 
 # Map mode's updates on the host since import, beside K3+K4's
 # ``voxelhash_query.launches``: "fuses" (promotions fused into the map by

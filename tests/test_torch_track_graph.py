@@ -1,5 +1,5 @@
 """Keyframe odometry's fused Gauss-Newton loop replayed as a CUDA graph
-(``models/slam/odometry._track_keyframe``, ``_GNGraph``).
+(``models/slam/odometry._track_keyframe``, ``_Graph``).
 
 On the CPU: CPU tensors never capture (``_track_keyframe.captures`` and
 ``.replays`` stay empty, the graph cache too) and give ``_fused_gn``'s
@@ -63,7 +63,7 @@ def tracks(monkeypatch):
     """A fresh graph cache and counters; every ``_track_keyframe`` call's
     inputs (``_fused_gn``'s operands) and outputs, in order."""
     track = odometry._track_keyframe
-    monkeypatch.setattr(odometry, "_GN_GRAPHS", {})
+    monkeypatch.setattr(odometry, "_GRAPHS", {})
     monkeypatch.setattr(track, "captures", Counter())
     monkeypatch.setattr(track, "replays", Counter())
     calls = []
@@ -95,7 +95,7 @@ def test_cpu_never_captures(tracks):
     cfg = config(256, 512, icp_iterations=4)
     _, diags = run(cam, depths, cfg)
     assert len(calls) == 3
-    assert track.captures == Counter() and track.replays == Counter() and odometry._GN_GRAPHS == {}
+    assert track.captures == Counter() and track.replays == Counter() and odometry._GRAPHS == {}
     for inputs, out in calls:
         for got, want in zip(out, odometry._fused_gn(*inputs, cfg)):
             assert torch.equal(got, want)
@@ -169,7 +169,7 @@ def test_cuda_graph_equals_eager_bit_for_bit(cuda_device, tracks, size):
     torch.cuda.synchronize()
     shape = (1, n, m)  # both sizes are multiples of the packers' blocks
     assert track.captures == {shape: 1} and track.replays == {shape: STEPS - 1}
-    (graph,) = odometry._GN_GRAPHS.values()
+    (graph,) = odometry._GRAPHS.values()
     assert graph.tally == {(icp_gn.gn_system_packed, shape): cfg.icp_iterations}
     assert icp_gn.gn_system_packed.launches - launches == STEPS * cfg.icp_iterations
     assert any(bool(d.promoted) for d in diags)
@@ -191,7 +191,7 @@ def test_cuda_changed_huber_delta_captures_a_second_graph(cuda_device, tracks):
     run(cam, depths, cfg)
     run(cam, depths, dataclasses.replace(cfg, huber_delta=0.03))
     shape = (1, n, m)
-    assert len(odometry._GN_GRAPHS) == 2
+    assert len(odometry._GRAPHS) == 2
     assert track.captures == {shape: 2} and track.replays == {shape: 4}
 
 
