@@ -265,6 +265,7 @@ from perception_tpu_torch.bench import (
     profile_stages,
     sweep_config,
 )
+from perception_tpu_torch.ops.kernels import wrappers
 
 FRAMES = 8
 K1_TIMED = ((1, 8192), (2, 8192), (4, 8192), (8, 8192), (1, 32768), (1, 24576))  # the path shapes (B, N) at K=1024
@@ -930,15 +931,6 @@ def run_slice(device):
             "fitness over the gate")
     require(np.all(rel <= 5e-2), "CUDA and CPU fitness differ by more than rtol 5e-2")
     return launches
-
-
-def wrappers():
-    """Every kernel's wrapper, by kernel name; each counts its launches."""
-    from perception_tpu_torch.ops.kernels.icp_gn import gn_system_packed
-    from perception_tpu_torch.ops.kernels.ransac_score import ransac_score
-    from perception_tpu_torch.ops.kernels.voxelhash_query import voxelhash_query
-
-    return {"ransac_score": ransac_score, "icp_gn": gn_system_packed, "voxelhash_query": voxelhash_query}
 
 
 def reset_launches():

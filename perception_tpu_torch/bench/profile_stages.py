@@ -47,6 +47,7 @@ import numpy as np
 import torch
 
 from perception_tpu_torch.bench.timing import device_of, sync
+from perception_tpu_torch.ops.kernels import wrappers
 
 REPS = 50  # benchmarks/profile_stages.py's measure_stage default
 
@@ -388,16 +389,8 @@ def hash_nn_cost(vh, q, out):
 # --- the run ------------------------------------------------------------------
 
 
-def _wrappers():
-    from perception_tpu_torch.ops.kernels.icp_gn import gn_system_packed
-    from perception_tpu_torch.ops.kernels.ransac_score import ransac_score
-    from perception_tpu_torch.ops.kernels.voxelhash_query import voxelhash_query
-
-    return {"ransac_score": ransac_score, "icp_gn": gn_system_packed, "voxelhash_query": voxelhash_query}
-
-
 def _launch_snapshot():
-    return {name: dict(w.launches_by_shape) for name, w in _wrappers().items()}
+    return {name: dict(w.launches_by_shape) for name, w in wrappers().items()}
 
 
 def _launch_delta(before):

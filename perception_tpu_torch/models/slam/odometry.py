@@ -13,13 +13,13 @@ Engines, as ``OdometryConfig`` selects them:
 - keyframe mode, ``fused_gn`` "auto"/"off": the op graph with brute NN
   (``ops/nn.py``); "on": the fused GN kernel K2
   (``ops/kernels/icp_gn.py``) once per iteration, the whole loop
-  replayed on the card as one CUDA graph (``_Graph``);
+  replayed on the card as one CUDA graph (``_graph.captured``);
 - map mode, ``map_nn`` "auto"/"shortlist": one top-k NN pass per frame,
   then k-candidate argmins and an exact brute polish; "brute": brute NN
   every iteration; "hash": the persistent voxel hash
   (``ops/voxelhash.py``, kernel K3+K4) once per iteration and once for
   the final stats, the iterations and the stats replayed on the card as
-  one CUDA graph after the source's eager cell sort.
+  one CUDA graph (``_graph.captured``) after the source's eager cell sort.
 
 The JAX package jits the whole step. Here it runs eagerly, but for those
 two graphs: ``lax.scan``
@@ -49,6 +49,7 @@ from typing import NamedTuple, Tuple
 
 import torch
 
+from perception_tpu_torch import _graph
 from perception_tpu_torch._tensor import const, fp32
 from perception_tpu_torch.geometry import se3
 from perception_tpu_torch.geometry.camera import PinholeCamera
@@ -56,7 +57,6 @@ from perception_tpu_torch.ops import nn as _nn
 from perception_tpu_torch.ops import voxelhash
 from perception_tpu_torch.ops.icp import _huber_weight
 from perception_tpu_torch.ops.kernels.icp_gn import gn_system_packed, pack_source, pack_target
-from perception_tpu_torch.ops.kernels.voxelhash_query import voxelhash_query
 from perception_tpu_torch.ops.normals import normals_from_depth
 from perception_tpu_torch.ops.points import (
     SENTINEL,
@@ -64,7 +64,7 @@ from perception_tpu_torch.ops.points import (
     compact_with_attrs,
     voxel_downsample_with_attrs,
 )
-from perception_tpu_torch.utils.profiler import count_launch, span, tallied
+from perception_tpu_torch.utils.profiler import span
 
 SHORTLIST_TILE = 4096  # map columns of the shortlist's distance matrix built at a time
 
@@ -427,8 +427,8 @@ def _hash_solve(src_pts, src_mask, T0, table, points, cell_ids, origin, cell_siz
                 cfg: OdometryConfig):
     """``_map_solve`` on the voxel hash (K3+K4), the source already in
     cell order: a function of tensors alone, with no read back to the
-    host and every shape fixed by its inputs, so on the card
-    ``_track_map`` captures it. The hash comes as the fields the query
+    host and every shape fixed by its inputs, so ``_graph.captured``
+    can capture it. The hash comes as the fields the query
     reads; it reads neither ``sentinel_id`` nor ``order``."""
     vh = voxelhash.VoxelHash(points=points, table=table, cell_ids=cell_ids, origin=origin,
                              cell_size=cell_size, dims=dims, sentinel_id=None, order=None)
@@ -441,12 +441,9 @@ def _track_map(state: OdometryState, src_pts, src_mask, T0, cfg: OdometryConfig)
     """Map mode: GN against the fused map with the configured engine.
     Returns (T, num_corr, fitness, nn_overflow, src_mask).
 
-    With the hash engine on CUDA tensors, the solve after the source's
-    cell sort (``_hash_solve``) runs through ``_captured``: a key's first
-    call runs eagerly and then captures it (``_track_map.captures``, by
-    K3+K4's (padded queries, table rows)), later calls replay it
-    (``_track_map.replays``). The other engines, and CPU tensors, run
-    eagerly."""
+    With the hash engine the solve after the source's cell sort
+    (``_hash_solve``) runs through ``_graph.captured``, as one CUDA graph
+    on CUDA tensors. The other engines run eagerly."""
     engine = _map_engine(cfg)
 
     if engine == "shortlist":
@@ -508,10 +505,7 @@ def _track_map(state: OdometryState, src_pts, src_mask, T0, cfg: OdometryConfig)
         # The hash is rebuilt on every promotion, so a replay copies it in.
         inputs = (src_pts, src_mask, T0, vh.table, vh.points, vh.cell_ids, vh.origin, vh.cell_size, vh.dims,
                   state.map_nrm_hash)
-        if src_pts.device.type != "cuda":
-            return (*_hash_solve(*inputs, cfg), src_mask)
-        return (*_captured(_track_map, _hash_solve, inputs, cfg, voxelhash_query, cfg.icp_iterations,
-                           cfg.map_nn_radius, cfg.huber_delta, cfg.damping), src_mask)
+        return (*_graph.captured(_hash_solve, inputs, cfg), src_mask)
 
     map_pts_nn = apply_mask(state.map_points, state.map_mask)
 
@@ -527,7 +521,7 @@ def _fused_gn(src_pts, src_mask, kf_points, kf_normals, kf_mask, T, cfg: Odometr
     packed once; each iteration passes only the pose. The stats describe
     the start of the final iteration, as in the JAX package (one iteration
     stale, equal at convergence). Nothing reads back to the host and the
-    config fixes every shape, so on the card ``_track_keyframe`` captures it."""
+    config fixes every shape, so ``_graph.captured`` can capture it."""
     src8 = pack_source(src_pts[None], src_mask[None])
     tgtd, tnrm8 = pack_target(kf_points, kf_normals, kf_mask)
     eye6 = cfg.damping * torch.eye(6, device=T.device)
@@ -541,84 +535,14 @@ def _fused_gn(src_pts, src_mask, kf_points, kf_normals, kf_mask, T, cfg: Odometr
     return T, ngate.to(torch.int32), gd2 / torch.clamp(ngate, min=1.0)
 
 
-class _Graph:
-    """``fn(*inputs, cfg)``, a function of tensors that reads nothing back
-    to the host and whose shapes its inputs fix, captured once as a CUDA
-    graph: static inputs that each call's tensors are copied into, and
-    static outputs that each replay overwrites and that leave only as
-    clones, so no returned tensor aliases the next replay's. The replay
-    runs the captured kernels with the eager call's launch plans, in its
-    order, so its results equal the eager call's bit for bit. The
-    launches that ``count_launch`` saw during the capture (``tally``) are
-    counted again at each replay; ``shape`` is the one shape the capture
-    launched ``wrapper`` at. One graph serves one thread at a time: two
-    threads sharing a key would share its buffers."""
-
-    def __init__(self, fn, inputs, cfg: OdometryConfig, wrapper):
-        self.inputs = [torch.empty_like(t) for t in inputs]
-        self.device = inputs[0].device
-        self.graph = torch.cuda.CUDAGraph()
-        # thread_local: another thread's CUDA calls meanwhile are not the capture's concern.
-        with torch.cuda.device(self.device), tallied() as self.tally, torch.cuda.graph(
-                self.graph, capture_error_mode="thread_local"):
-            self.outputs = fn(*self.inputs, cfg)
-        # Raises if the capture launched ``wrapper`` at no shape, or at two.
-        (self.shape,) = {shape for launched, shape in self.tally if launched is wrapper}
-
-    def __call__(self, inputs):
-        with torch.cuda.device(self.device):
-            for dst, src in zip(self.inputs, inputs):
-                dst.copy_(src)
-            self.graph.replay()
-            for (wrapper, shape), n in self.tally.items():
-                count_launch(wrapper, shape, n)
-            return tuple(t.clone() for t in self.outputs)
-
-
-_GRAPHS = {}  # _graph_key -> _Graph
-
-
-def _graph_key(fn, inputs, *numbers):
-    """What a captured ``fn`` depends on: the device, the inputs' shapes
-    and dtypes, the config's numbers it reads and the TF32 flags its
-    products ran under."""
-    return (fn, inputs[0].device, tuple((tuple(t.shape), t.dtype) for t in inputs), *numbers,
-            torch.backends.cuda.matmul.allow_tf32, torch.backends.cudnn.allow_tf32)
-
-
-def _captured(track, fn, inputs, cfg: OdometryConfig, wrapper, *numbers):
-    """``fn(*inputs, cfg)`` on CUDA tensors through the graph at its key,
-    ``numbers`` being the config's numbers ``fn`` reads: the key's first
-    call runs eagerly and then captures ``fn`` (``track.captures``, by
-    the shape the capture launched ``wrapper`` at); later calls replay
-    it (``track.replays``)."""
-    key = _graph_key(fn, inputs, *numbers)
-    graph = _GRAPHS.get(key)
-    if graph is None:
-        out = fn(*inputs, cfg)
-        _GRAPHS[key] = graph = _Graph(fn, inputs, cfg, wrapper)
-        track.captures[graph.shape] += 1
-        return out
-    out = graph(inputs)
-    track.replays[graph.shape] += 1
-    return out
-
-
 def _track_keyframe(state: OdometryState, src_pts, src_mask, T0, cfg: OdometryConfig):
     """Keyframe mode: GN against the keyframe cloud, through K2 when
-    ``fused_gn == "on"``. Returns (T, num_corr, fitness).
-
-    On CUDA tensors the fused loop's first call at a key runs eagerly and
-    then captures the loop (``_track_keyframe.captures``, by the (1, Np,
-    Mp) the capture launched K2 at); later calls replay the capture
-    (``_track_keyframe.replays``), each counting the K2 launches its
-    capture recorded. CPU tensors run it eagerly."""
+    ``fused_gn == "on"``, whose loop runs through ``_graph.captured``:
+    replayed as a CUDA graph on CUDA tensors. Returns (T, num_corr,
+    fitness)."""
     if cfg.fused_gn == "on":
         inputs = (src_pts, src_mask, state.kf_points, state.kf_normals, state.kf_mask, T0)
-        if src_pts.device.type != "cuda":
-            return _fused_gn(*inputs, cfg)
-        return _captured(_track_keyframe, _fused_gn, inputs, cfg, gn_system_packed, cfg.icp_iterations,
-                         cfg.max_correspondence_distance, cfg.huber_delta, cfg.damping)
+        return _graph.captured(_fused_gn, inputs, cfg)
 
     max_d2 = cfg.max_correspondence_distance**2
 
@@ -635,11 +559,6 @@ def _track_keyframe(state: OdometryState, src_pts, src_mask, T0, cfg: OdometryCo
     num_corr = torch.sum(gate, dtype=torch.int32)
     return T, num_corr, torch.sum(d2 * gate) / torch.clamp(num_corr.to(d2.dtype), min=1.0)
 
-
-_track_keyframe.captures = Counter()  # fused loops captured, by the (1, Np, Mp) K2 was captured at
-_track_keyframe.replays = Counter()   # and replayed
-_track_map.captures = Counter()  # hash solves captured, by K3+K4's (padded queries, table rows)
-_track_map.replays = Counter()   # and replayed
 
 # Map mode's updates on the host since import, beside K3+K4's
 # ``voxelhash_query.launches``: "fuses" (promotions fused into the map by

@@ -9,12 +9,11 @@ device's idle share while the host was inside it and the kernels it
 launched; the root spans' host ms a unit against the harness's
 ``entry_s`` a unit; and every device idle gap of at least ``--gap-ms``,
 named by the innermost span holding it, with that span's wall, CPU time
-and switches; and odometry's CUDA graphs, in all and inside the window,
-which show a graph engaged: keyframe mode's fused loop
-(``_track_keyframe.captures`` and ``.replays`` by K2's (1, Np, Mp)) and
-map mode's hash solve (``_track_map.captures`` and ``.replays`` by
-K3+K4's (padded queries, table rows)). ``--json`` writes the same, and
-every long unit's stages.
+and switches; and the CUDA graphs captured and replayed, in all and
+inside the window, which show a graph engaged (``_graph.captures`` and
+``.replays`` by the captured function: ``_fused_gn``, keyframe mode's
+loop on K2, and ``_hash_solve``, map mode's on K3+K4). ``--json`` writes
+the same, and every long unit's stages.
 
 Needs a CUDA card. Run from the repository root:
 ``python3 tools_torch/span_breakdown.py --workload odom.live_kf32k --seed 7 [--seconds 10] [--json PATH]``
@@ -36,16 +35,13 @@ from torch.profiler import ProfilerActivity, profile  # noqa: E402
 
 from perfbench import harness, spans as sp, trace as tr  # noqa: E402
 from perfbench.systems.record import Window, now  # noqa: E402
+from perception_tpu_torch import _graph  # noqa: E402
 from perception_tpu_torch.utils import profiler  # noqa: E402
 
 
 def track_graphs() -> dict:
-    """Odometry's graphs so far, by the stage that replays them: captures
-    and replays by the kernel's shape."""
-    from perception_tpu_torch.models.slam.odometry import _track_keyframe, _track_map
-
-    return {track.__name__: {"captures": dict(track.captures), "replays": dict(track.replays)}
-            for track in (_track_keyframe, _track_map)}
+    """The graphs' captures and replays so far, by the captured function."""
+    return {"captures": dict(_graph.captures), "replays": dict(_graph.replays)}
 
 
 def traced_window(cell: str, seed: int, seconds: float):
@@ -76,16 +72,11 @@ def innermost(records, t: float):
 
 
 def graph_counts(before: dict, after: dict) -> dict:
-    """Each stage's graph captures and replays in all and inside the
-    window, by shape written as "1x8192x32768"."""
-    def keyed(counts):
-        return {"x".join(map(str, k)): v for k, v in counts.items()}
-
-    return {track: {kind: {"total": keyed(now[kind]),
-                           "window": keyed({k: v - before[track][kind].get(k, 0) for k, v in now[kind].items()
-                                            if v != before[track][kind].get(k, 0)})}
-                    for kind in ("captures", "replays")}
-            for track, now in after.items()}
+    """The graphs' captures and replays in all and inside the window, by
+    the captured function."""
+    return {kind: {"total": now, "window": {k: v - before[kind].get(k, 0) for k, v in now.items()
+                                            if v != before[kind].get(k, 0)}}
+            for kind, now in after.items()}
 
 
 def breakdown(rec, ops, records, graphs, gap_ms: float) -> dict:
