@@ -10,7 +10,8 @@ Counterpart of ``perception_tpu/models/cuboid.py``:
 
 Every stage takes one frame or a batch of B frames. RANSAC scoring (the
 fused kernel), RANSAC itself and ICP run the batch as a real dimension
-(B * restarts ICP lanes); the sort-based point ops loop over frames
+(B * restarts ICP lanes); on the card the point-to-plane ICP replays as
+one CUDA graph a batch shape. The sort-based point ops loop over frames
 (ROADMAP.md, Queue 2). Randomness comes from an explicit
 ``torch.Generator``, or the RANSAC triplets are given as ``indices``.
 """
@@ -24,6 +25,7 @@ from typing import NamedTuple, Optional, Tuple
 import numpy as np
 import torch
 
+from perception_tpu_torch import _graph
 from perception_tpu_torch._tensor import const
 from perception_tpu_torch.geometry import se3
 from perception_tpu_torch.geometry.camera import PinholeCamera
@@ -201,6 +203,40 @@ def template_features(
     return tuple(torch.from_numpy(a).to(device) for a in (tpts, tnorm, tmask))
 
 
+def _restart_icp(icp, box_points, box_mask, template, template_mask, k: int):
+    """``icp(sources, masks, inits)`` from K yaw restarts of each scene
+    cloud, and the restart of least fitness: (pose, fitness, converged),
+    ``pose`` the inverse of its scene->template transform."""
+    cs = P.centroid(box_points, box_mask)
+    ct = P.centroid(template, template_mask)
+    inits = _yaw_restart_inits(cs, ct, k, box_points.dtype)  # (..., k, 4, 4)
+
+    lead = box_points.shape[:-2]
+    sources = box_points[..., None, :, :].expand(lead + (k,) + box_points.shape[-2:])
+    masks = box_mask[..., None, :].expand(lead + (k,) + box_mask.shape[-1:])
+    res = icp(sources, masks, inits)
+    best = torch.argmin(res.fitness, dim=-1, keepdim=True)  # (..., 1)
+    T_best = torch.take_along_dim(res.transform, best[..., None, None], dim=-3)[..., 0, :, :]
+    fitness = torch.take_along_dim(res.fitness, best, dim=-1)[..., 0]
+    converged = torch.take_along_dim(res.converged, best, dim=-1)[..., 0]
+    return se3.inverse(T_best), fitness, converged
+
+
+def _pose_p2plane(box_points, box_mask, template, template_mask, template_normals, cfg: CuboidConfig):
+    """The yaw restarts' point-to-plane ICP: (pose, fitness, converged).
+    A function of tensors and the config that reads nothing back to the
+    host and whose inputs fix every shape, so ``_graph.captured`` can
+    capture it."""
+    def icp(sources, masks, inits):
+        return icp_point_to_plane(
+            sources, masks, template, template_normals, template_mask, inits,
+            max_iterations=cfg.icp_max_iterations,
+            transformation_epsilon=1e-12,
+        )
+
+    return _restart_icp(icp, box_points, box_mask, template, template_mask, cfg.icp_restarts)
+
+
 def estimate_cuboid_pose(
     box_points: torch.Tensor,
     box_mask: torch.Tensor,
@@ -213,35 +249,26 @@ def estimate_cuboid_pose(
     template, point-to-plane (``icp_mode="p2plane"``, which needs
     ``template_normals``) or point-to-point (``"p2p"``). Returns (pose,
     fitness, converged); ``pose`` maps template points into the camera
-    frame (the inverse of the best scene->template transform)."""
+    frame (the inverse of the best scene->template transform).
+
+    Point-to-plane (``_pose_p2plane``) runs through ``_graph.captured``:
+    on CUDA tensors one CUDA graph a batch shape, replayed. Point-to-point
+    reads ``done.all()`` back to the host, so it runs eagerly."""
     if config.icp_mode == "p2plane" and template_normals is None:
         raise ValueError("template_normals is required: take them from template_features()")
     with span("cuboid.estimate_cuboid_pose"):
-        k = config.icp_restarts
-        cs = P.centroid(box_points, box_mask)
-        ct = P.centroid(template, template_mask)
-        inits = _yaw_restart_inits(cs, ct, k, box_points.dtype)  # (..., k, 4, 4)
-
-        lead = box_points.shape[:-2]
-        sources = box_points[..., None, :, :].expand(lead + (k,) + box_points.shape[-2:])
-        masks = box_mask[..., None, :].expand(lead + (k,) + box_mask.shape[-1:])
         if config.icp_mode == "p2plane":
-            res = icp_point_to_plane(
-                sources, masks, template, template_normals, template_mask, inits,
-                max_iterations=config.icp_max_iterations,
-                transformation_epsilon=1e-12,
-            )
-        else:
-            res = icp_batched(
+            inputs = (box_points, box_mask, template, template_mask, template_normals)
+            return _graph.captured(_pose_p2plane, inputs, config)
+
+        def icp(sources, masks, inits):
+            return icp_batched(
                 sources, masks, template, template_mask, init_transforms=inits,
                 max_iterations=config.icp_max_iterations,
                 transformation_epsilon=1e-9,
             )
-        best = torch.argmin(res.fitness, dim=-1, keepdim=True)  # (..., 1)
-        T_best = torch.take_along_dim(res.transform, best[..., None, None], dim=-3)[..., 0, :, :]
-        fitness = torch.take_along_dim(res.fitness, best, dim=-1)[..., 0]
-        converged = torch.take_along_dim(res.converged, best, dim=-1)[..., 0]
-        return se3.inverse(T_best), fitness, converged
+
+        return _restart_icp(icp, box_points, box_mask, template, template_mask, config.icp_restarts)
 
 
 def cuboid_pipeline_step(

@@ -10,10 +10,11 @@ launched; the root spans' host ms a unit against the harness's
 ``entry_s`` a unit; and every device idle gap of at least ``--gap-ms``,
 named by the innermost span holding it, with that span's wall, CPU time
 and switches; and the CUDA graphs captured and replayed, in all and
-inside the window, which show a graph engaged (``_graph.captures`` and
-``.replays`` by the captured function: ``_fused_gn``, keyframe mode's
-loop on K2, and ``_hash_solve``, map mode's on K3+K4). ``--json`` writes
-the same, and every long unit's stages.
+inside the window, which show a graph engaged (``graphs``:
+``_graph.captures`` and ``.replays`` by the captured function:
+``_fused_gn``, keyframe mode's loop on K2, ``_hash_solve``, map mode's
+on K3+K4, and ``_pose_p2plane``, the cuboid's yaw-restart point-to-plane
+ICP). ``--json`` writes the same, and every long unit's stages.
 
 Needs a CUDA card. Run from the repository root:
 ``python3 tools_torch/span_breakdown.py --workload odom.live_kf32k --seed 7 [--seconds 10] [--json PATH]``
@@ -39,7 +40,7 @@ from perception_tpu_torch import _graph  # noqa: E402
 from perception_tpu_torch.utils import profiler  # noqa: E402
 
 
-def track_graphs() -> dict:
+def graphs_so_far() -> dict:
     """The graphs' captures and replays so far, by the captured function."""
     return {"captures": dict(_graph.captures), "replays": dict(_graph.replays)}
 
@@ -54,7 +55,7 @@ def traced_window(cell: str, seed: int, seconds: float):
     torch.cuda.synchronize(device)
     profiler.clear_spans()
     rec = Window()
-    graphs = track_graphs()
+    graphs = graphs_so_far()
     with profile(activities=[ProfilerActivity.CUDA]) as prof:
         torch.cuda.synchronize(device)
         marker = now()
@@ -62,7 +63,7 @@ def traced_window(cell: str, seed: int, seconds: float):
         sut.window(seconds, rec)
         torch.cuda.synchronize(device)
     ops = tr.clip(tr.kineto_ops(prof, marker), rec.start, rec.end)
-    return rec, ops, [s for s in profiler.spans() if rec.start <= s.t0 < rec.end], (graphs, track_graphs())
+    return rec, ops, [s for s in profiler.spans() if rec.start <= s.t0 < rec.end], (graphs, graphs_so_far())
 
 
 def innermost(records, t: float):
@@ -126,7 +127,7 @@ def breakdown(rec, ops, records, graphs, gap_ms: float) -> dict:
             "largest_child_share": child_share,
             "root_wall_ms": {"median": statistics.median(walls), "max": walls[-1],
                              "p95": statistics.quantiles(walls, n=100, method="inclusive")[94] if len(walls) > 1 else walls[0]},
-            "stages": stages, "track_graphs": graph_counts(*graphs), "stalls": stalls,
+            "stages": stages, "graphs": graph_counts(*graphs), "stalls": stalls,
             "long_units": long_units}
 
 
